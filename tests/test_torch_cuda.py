@@ -1,5 +1,6 @@
-"""The port on an NVIDIA GPU: the CUDA kernel against its plain version, and
-the device slice against tpubz's native CPU engine, at levels 1 and 9.
+"""The port on an NVIDIA GPU: the CUDA kernels against their plain versions,
+the BWT on the card against the CPU path, and the device slice against
+tpubz's native CPU engine, at levels 1 and 9.
 
 Marked ``cuda``; each test skips unless torch sees a card (decided in the
 fixture, never at import). The codec is integer, so every comparison is
@@ -132,3 +133,88 @@ def test_level9_stream_matches_compress_cpu(cuda):
     assert mtf_dominance.LAUNCHES - before >= blocks
     assert got == compress_cpu(d, 9)
     assert tpubz_torch.decompress(got) == d
+
+
+def _bitonic_inputs(length, dtype, seed, device):
+    """Seeded keys with many duplicates (values below length / 4) and a
+    permutation payload, on the card."""
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(0, max(length // 4, 2), length).astype(dtype)
+    payload = rng.permutation(length).astype(np.int32)
+    return torch.from_numpy(keys).to(device), torch.from_numpy(payload).to(device)
+
+
+@pytest.mark.parametrize("op", ["1op", "2op"])
+@pytest.mark.parametrize("dtype", [np.int32, np.int64], ids=["i32", "i64"])
+@pytest.mark.parametrize("log2n", [10, 17, 20])
+def test_bitonic_matches_plain(cuda, log2n, dtype, op):
+    """bitonic_1op / bitonic_2op on the card equal their plain versions on
+    the same tensors, exactly, payload order on duplicate keys included;
+    one library call per sort, the inputs untouched."""
+    from tpubz_torch.kernels import bitonic
+
+    keys, payload = _bitonic_inputs(1 << log2n, dtype, log2n, cuda)
+    original = keys.clone()
+    before = bitonic.LAUNCHES
+    if op == "1op":
+        got = bitonic.bitonic_1op(keys)
+        torch.cuda.synchronize()
+        assert torch.equal(got, bitonic.bitonic_1op_ref(keys))
+    else:
+        gk, gp = bitonic.bitonic_2op(keys, payload)
+        torch.cuda.synchronize()
+        rk, rp = bitonic.bitonic_2op_ref(keys, payload)
+        assert torch.equal(gk, rk) and torch.equal(gp, rp)
+        got = gk
+    assert bitonic.LAUNCHES == before + 1
+    assert torch.equal(got, torch.sort(keys).values)
+    assert torch.equal(keys, original)
+
+
+@pytest.mark.parametrize("js", [[19, 18], [9, 8, 7, 6, 5, 4, 3, 2], [0, 15, 3, 11, 10, 12, 1]],
+                         ids=["row2", "lane8", "mixed"])
+@pytest.mark.parametrize("dtype", [np.int32, np.int64], ids=["i32", "i64"])
+def test_stage_passes_match_plain(cuda, dtype, js):
+    """stage_passes in place on 2^20 keys equals stage_passes_ref, for the
+    probe's row2 and lane8 cases and a mixed order of long and short
+    distances."""
+    from tpubz_torch.kernels import bitonic
+
+    keys, _ = _bitonic_inputs(1 << 20, dtype, len(js), cuda)
+    want = bitonic.stage_passes_ref(keys.clone(), js)
+    got = keys.clone()
+    assert bitonic.stage_passes(got, js) is got
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+_BWT_CASES = {
+    "banana": b"banana" * 30,
+    "aaaa": b"aaaa" * 100,
+    "n1": b"x",
+    "n777": bytes(np.random.default_rng(777).integers(0, 20, 777, dtype=np.uint8)),
+    "near_periodic": b"ab" * 500 + b"c",
+    "all256": bytes(range(256)) * 4,
+    "pow2": bytes(np.random.default_rng(2).integers(0, 3, 4096, dtype=np.uint8)),
+}
+
+
+@pytest.mark.parametrize("case", list(_BWT_CASES) + ["level9_corpus"])
+def test_bwt_forward_on_card_matches_cpu(cuda, case):
+    """bwt_forward on the card (bitonic kernels) gives the key and last
+    column of the port's CPU path (the plain network), pad lanes zero, and
+    launches at least one 2op round and the 1op last-column sort."""
+    from tpubz_torch.kernels import bitonic
+
+    c = mixed_corpus(1, 3)[:900_000] if case == "level9_corpus" else _BWT_CASES[case]
+    N = 900_096 if case == "level9_corpus" else 4352
+    data = torch.zeros(N, dtype=torch.uint8)
+    data[: len(c)] = torch.frombuffer(bytearray(c), dtype=torch.uint8)
+    calls = dict(bitonic.CALLS)
+    key, last = bwt_forward(data.to(cuda), len(c))
+    ckey, clast = bwt_forward(data, len(c))
+    assert int(key) == int(ckey)
+    assert torch.equal(last.cpu(), clast)
+    if len(c) > 1:
+        assert bitonic.CALLS["bitonic_2op"] > calls["bitonic_2op"]
+        assert bitonic.CALLS["bitonic_1op"] == calls["bitonic_1op"] + 1

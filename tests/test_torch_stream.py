@@ -195,6 +195,7 @@ def test_stage_probe_runs_at_level_1_on_cpu():
         sum(st["sum_ms"][k] for k in parts))
     prof = stage_probe.profile_stream(d, 1, "cpu")
     assert prof["device_events"] == 0 and prof["idle_share"] is None
+    assert prof["bitonic_kernels"] == []
     sweep = stage_probe.window_sweep(d, 1, "cpu", reps=1)
     assert set(sweep["MBps"]) == {str(w) for w in stage_probe.WINDOWS}
     assert len(sweep["host_engine_MBps"]) == 1

@@ -13,8 +13,9 @@ mixed corpus plus the edge blocks (``tpubz_torch.corpus``, as
   with ``torch.cuda.synchronize()`` after each stage, and of the native
   emission; medians and sums over the blocks, the first block excluded;
 - ``profile``: one ``compress`` under ``torch.profiler``: wall ms, device
-  busy ms (the union of kernel and copy intervals), the idle share, and
-  the kernels with the most device time;
+  busy ms (the union of kernel and copy intervals), the idle share, the
+  kernels with the most device time, and the device ms and launches of
+  each bitonic kernel (the BWT's sorts);
 - ``window``: stream MB/s for each ordered-drain window, and of tpubz's
   native host engine (``compress_cpu``) on the same data, in turns.
 """
@@ -117,6 +118,8 @@ def profile_stream(data: bytes, level: int, device) -> dict:
         "idle_share": 1 - busy_ms / wall if dev else None,
         "device_events": len(dev),
         "top_kernels": [{"name": k[:120], "ms": ms, "count": c} for k, (ms, c) in top],
+        "bitonic_kernels": [{"name": k[:120], "ms": ms, "count": c}
+                            for k, (ms, c) in by_name.items() if "bitonic" in k],
     }
 
 
