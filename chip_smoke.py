@@ -10,10 +10,16 @@ checks the BWT on the card against the port's plain path on the CPU for
 real and edge blocks, and a short level-9 stream byte for byte, then drives
 level-9 multi-block encode through
 tpubz_torch.compress on a seeded corpus of at least 16 MiB and round-trips
-it through tpubz_torch.decompress and, where it is installed, bunzip2. Every
-phase prints one line; any failure raises, so the script exits non-zero
-without the final line. Without a CUDA device it exits with code 1 and
-prints no result.
+it through tpubz_torch.decompress and, where it is installed, bunzip2. That
+run ([path]) is device-only on the full stage (TPUBZ_HYBRID_CPU=0,
+TPUBZ_DEVICE_STAGE=full). The same data then goes through the bwt stage
+([stage_bwt], device-only) and the default hybrid routing with a fresh rig
+profile ([hybrid], beside compress_cpu), each byte-equal to [path]'s stream
+with its kernel counts read from zero; and the short stream through
+compress_file, open("wb"), BZ2Compressor and python -m tpubz_torch
+([files]), each byte-equal to tpubz_torch.compress. Every phase prints one
+line; any failure raises, so the script exits non-zero without the final
+line. Without a CUDA device it exits with code 1 and prints no result.
 
 The line before the last is {"kernels": [...]}: per kernel its launches in
 the main-path run, its largest difference from the plain version, and both
@@ -25,9 +31,11 @@ where the sorts launch them. The last line is
 """
 import hashlib
 import json
+import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -41,6 +49,26 @@ SHORT_MIB = 3  # corpus prefix of the stream checked against the CPU path
 
 def _say(phase, msg):
     print(f"[{phase}] {msg}", flush=True)
+
+
+def _zero_counts():
+    from tpubz_torch.kernels import bitonic, mtf_dominance
+
+    mtf_dominance.LAUNCHES = 0
+    bitonic.LAUNCHES = bitonic.PASS_LAUNCHES = 0
+    bitonic.CALLS.update(dict.fromkeys(bitonic.CALLS, 0))
+
+
+def _bunzip2_ok(stream, data):
+    """True when bunzip2 is installed and gives data back; raises when it
+    gives anything else."""
+    if not shutil.which("bunzip2"):
+        return False
+    out = subprocess.run(["bunzip2", "-c"], input=stream, capture_output=True,
+                         timeout=300, check=True).stdout
+    if out != data:
+        raise AssertionError("bunzip2 round trip failed")
+    return True
 
 
 def _cuda_ms(fn, reps):
@@ -61,12 +89,20 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
+    from tpubz_torch.stage_probe import env
+
+    with tempfile.TemporaryDirectory() as tmp, env(TPUBZ_TORCH_CACHE=os.path.join(tmp, "cache")):
+        return _smoke(tmp)
+
+
+def _smoke(tmp):
     import tpubz_torch
     from tpubz_torch.block.encode import block_n
     from tpubz_torch.corpus import edge_blocks, mixed_corpus
     from tpubz_torch.kernels import _build, bitonic, mtf_dominance, suffix_sort
     from tpubz_torch.kernels.mtf import mtf_parts
     from tpubz_torch.kernels.suffix_sort import bwt_forward
+    from tpubz_torch.stage_probe import DEVICE_ONLY, env
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -211,23 +247,23 @@ def main():
     # a short stream on the card against the port's plain path on the CPU:
     # equal bytes mean every block's transforms agree
     short = corpus[: SHORT_MIB << 20] + b"".join(edges.values())
-    got = tpubz_torch.compress(short, LEVEL, device="cuda")
-    short_blocks = tpubz_torch.stream.api.last_stream_stats["blocks"]
-    t1 = time.perf_counter()
-    ref = tpubz_torch.compress(short, LEVEL, device="cpu")
-    cpu_dt = time.perf_counter() - t1
+    with env(**DEVICE_ONLY["full"]):
+        got = tpubz_torch.compress(short, LEVEL, device="cuda")
+        short_blocks = tpubz_torch.stream.api.last_stream_stats["blocks"]
+        t1 = time.perf_counter()
+        ref = tpubz_torch.compress(short, LEVEL, device="cpu")
+        cpu_dt = time.perf_counter() - t1
     if got != ref:
         raise AssertionError("the stream on the card differs from the plain CPU path")
     _say("short", f"bytes={len(short)} blocks={short_blocks} cuda_stream==cpu_plain_stream "
             f"cpu_plain_seconds={cpu_dt}")
 
-    # the main path, counted from zero
-    mtf_dominance.LAUNCHES = 0
-    bitonic.LAUNCHES = bitonic.PASS_LAUNCHES = 0
-    bitonic.CALLS.update(dict.fromkeys(bitonic.CALLS, 0))
+    # the main path, device-only on the full stage, counted from zero
+    _zero_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    stream = tpubz_torch.compress(data, LEVEL, device="cuda")
+    with env(**DEVICE_ONLY["full"]):
+        stream = tpubz_torch.compress(data, LEVEL, device="cuda")
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = mtf_dominance.LAUNCHES
@@ -236,13 +272,7 @@ def main():
     blocks = tpubz_torch.stream.api.last_stream_stats["blocks"]
     if tpubz_torch.decompress(stream) != data:
         raise AssertionError("tpubz_torch.decompress round trip failed")
-    ran = ["tpubz_torch.decompress"]
-    if shutil.which("bunzip2"):
-        out = subprocess.run(["bunzip2", "-c"], input=stream, capture_output=True,
-                             timeout=300, check=True).stdout
-        if out != data:
-            raise AssertionError("bunzip2 round trip failed")
-        ran.append("bunzip2")
+    ran = ["tpubz_torch.decompress"] + ["bunzip2"] * _bunzip2_ok(stream, data)
     _say("stream", f"stream_bytes={len(stream)} ratio={len(stream) / len(data)} "
             f"round_trips={'+'.join(ran)}")
 
@@ -261,6 +291,12 @@ def main():
             f"bitonic_launches={sort_launches} bitonic_calls={sort_calls} "
             f"pass_kernel_launches={pass_launches} MB={mb} seconds={dt} "
             f"MBps={mb / dt} jax_imported=False")
+
+    stage_bwt(tpubz_torch, data, stream)
+    hybrid(tpubz_torch, data, stream, tmp)
+    files(tpubz_torch, short, got, tmp)
+    if "jax" in sys.modules:
+        raise AssertionError("jax was imported")
 
     sorts = [
         ("bitonic_1op", "tools/probe_pallas_sort.py:110", sort_calls["bitonic_1op"],
@@ -291,6 +327,106 @@ def main():
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def stage_bwt(tpubz_torch, data, stream):
+    """The bwt stage, device-only, on the main path's data: the same bytes,
+    the bitonic sorts on every block and no MTF kernel (it lies off this
+    stage)."""
+    from tpubz_torch.kernels import bitonic, mtf_dominance
+    from tpubz_torch.stage_probe import DEVICE_ONLY, env
+
+    _zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with env(**DEVICE_ONLY["bwt"]):
+        got = tpubz_torch.compress(data, LEVEL, device="cuda")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    st = dict(tpubz_torch.stream.api.last_stream_stats)
+    calls = dict(bitonic.CALLS)
+    if got != stream:
+        raise AssertionError("the bwt stage's stream differs from the full stage's")
+    if st["stage"] != "bwt" or st["dev_blocks"] != st["blocks"]:
+        raise AssertionError(f"not a device-only bwt stream: {st}")
+    if sum(calls.values()) < 2 * st["blocks"] or calls["bitonic_1op"] < st["blocks"]:
+        raise AssertionError(f"bitonic calls {calls} for {st['blocks']} blocks")
+    if mtf_dominance.LAUNCHES:
+        raise AssertionError(f"{mtf_dominance.LAUNCHES} mtf_dominance launches on the bwt stage")
+    mb = len(data) / 1e6
+    _say("stage_bwt", f"blocks={st['blocks']} stream==path_stream bitonic_calls={calls} "
+         f"bitonic_launches={bitonic.LAUNCHES} pass_kernel_launches={bitonic.PASS_LAUNCHES} "
+         f"mtf_dominance_launches=0 MB={mb} seconds={dt} MBps={mb / dt}")
+
+
+def hybrid(tpubz_torch, data, stream, tmp):
+    """The default routing (hybrid CPU pool, stage from a fresh profile) on
+    the main path's data, then compress_cpu on the same data."""
+    from tpubz_torch.kernels import bitonic, mtf_dominance
+    from tpubz_torch.stage_probe import env
+    from tpubz_torch.stream import rigprofile
+
+    rigprofile.reset_memo()
+    _zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with env(TPUBZ_TORCH_CACHE=os.path.join(tmp, "hybrid_cache"), TPUBZ_HYBRID_CPU=None,
+             TPUBZ_DEVICE_STAGE=None):
+        got = tpubz_torch.compress(data, LEVEL, device="cuda")
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        st = dict(tpubz_torch.stream.api.last_stream_stats)
+        rigprofile.reset_memo()
+    if got != stream:
+        raise AssertionError("the hybrid stream differs from the device-only stream")
+    if st["engine"] != "hybrid" or st["dev_blocks"] < 1:
+        raise AssertionError(f"the hybrid ran no device block: {st}")
+    t0 = time.perf_counter()
+    host = tpubz_torch.compress_cpu(data, LEVEL)
+    cpu_dt = time.perf_counter() - t0
+    if host != stream:
+        raise AssertionError("compress_cpu differs from the device-only stream")
+    mb = len(data) / 1e6
+    _say("hybrid", f"blocks={st['blocks']} stage={st['stage']} dev_blocks={st['dev_blocks']} "
+         f"cpu_blocks={st['cpu_blocks']} cpu_workers={st['cpu_workers']} window={st['window']} "
+         f"stream==path_stream bitonic_calls={dict(bitonic.CALLS)} "
+         f"mtf_dominance_launches={mtf_dominance.LAUNCHES} MB={mb} seconds={dt} "
+         f"MBps={mb / dt} compress_cpu_seconds={cpu_dt} compress_cpu_MBps={mb / cpu_dt} "
+         f"cpu_count={os.cpu_count()}")
+
+
+def files(tpubz_torch, short, want, tmp):
+    """The file surfaces on the card, each byte-equal to compress on the
+    short stream and read back by bunzip2."""
+    from tpubz_torch.stream.files import compress_file
+
+    src = os.path.join(tmp, "short.bin")
+    with open(src, "wb") as f:
+        f.write(short)
+    outs = {}
+    compress_file(src, os.path.join(tmp, "file.bz2"), LEVEL, device="cuda")
+    with open(os.path.join(tmp, "file.bz2"), "rb") as f:
+        outs["compress_file"] = f.read()
+    with tpubz_torch.open(os.path.join(tmp, "open.bz2"), "wb", device="cuda") as f:
+        f.write(short)
+    with open(os.path.join(tmp, "open.bz2"), "rb") as f:
+        outs["open_wb"] = f.read()
+    comp = tpubz_torch.BZ2Compressor(LEVEL, device="cuda")
+    chunks = [comp.compress(short[i:i + (1 << 20)]) for i in range(0, len(short), 1 << 20)]
+    outs["BZ2Compressor"] = b"".join(chunks) + comp.flush()
+    root = os.path.dirname(os.path.abspath(__file__))
+    subprocess.run([sys.executable, "-m", "tpubz_torch", "-k", "-9", src], cwd=root,
+                   env=dict(os.environ, PYTHONPATH=os.pathsep.join(
+                       filter(None, (root, os.environ.get("PYTHONPATH"))))),
+                   check=True, timeout=600)
+    with open(src + ".bz2", "rb") as f:
+        outs["python -m tpubz_torch"] = f.read()
+    checked = []
+    for name, out in outs.items():
+        if out != want:
+            raise AssertionError(f"{name} differs from tpubz_torch.compress")
+        checked.append(name + ("+bunzip2" if _bunzip2_ok(out, short) else ""))
+    _say("files", f"bytes={len(short)} equal_to_compress={','.join(checked)}")
 
 
 if __name__ == "__main__":

@@ -34,6 +34,20 @@ def cuda():
     return torch.device("cuda")
 
 
+@pytest.fixture(autouse=True)
+def port_profile(tmp_path, monkeypatch):
+    """A fresh port rig profile per test; streams are device-only on the
+    full stage unless a test asks for another route."""
+    from tpubz_torch.stream import rigprofile
+
+    monkeypatch.setenv("TPUBZ_TORCH_CACHE", str(tmp_path / "torch_cache"))
+    monkeypatch.setenv("TPUBZ_HYBRID_CPU", "0")
+    monkeypatch.setenv("TPUBZ_DEVICE_STAGE", "full")
+    rigprofile.reset_memo()
+    yield
+    rigprofile.reset_memo()
+
+
 def _random_parts(nc, seed, device):
     rng = np.random.default_rng(seed)
     arrs = (
@@ -218,3 +232,60 @@ def test_bwt_forward_on_card_matches_cpu(cuda, case):
     if len(c) > 1:
         assert bitonic.CALLS["bitonic_2op"] > calls["bitonic_2op"]
         assert bitonic.CALLS["bitonic_1op"] == calls["bitonic_1op"] + 1
+
+
+def test_fetch_bwt_pinned_copy_matches_sync(cuda):
+    """fetch_bwt's non-blocking copy into pinned memory, waited on through
+    its event on another thread, equals a synchronous .cpu() of the same
+    tensors; so does fetch's."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    blk = np.frombuffer(mixed_corpus(1, 4)[:900_000], np.uint8)
+    enc = DeviceBlockEncoder(9, cuda)
+    stream = torch.cuda.Stream(cuda)
+    with torch.cuda.stream(stream):
+        out = enc.transform_bwt(blk)
+        pending = enc.fetch_bwt_async(out)
+        full = enc.transform(blk)
+        pending_full = enc.fetch_async(full)
+    with ThreadPoolExecutor(1) as ex:
+        key, last = ex.submit(pending.result).result()
+        fkey, syms, rl, freqs, used = ex.submit(pending_full.result).result()
+    torch.cuda.synchronize()
+    assert key == int(out[0].cpu()) == fkey
+    assert np.array_equal(last, out[1].cpu().numpy()[: blk.size])
+    assert rl == int(full[2].cpu())
+    assert np.array_equal(syms, full[1][:rl].cpu().numpy().astype(np.uint16))
+    assert np.array_equal(freqs, full[3].cpu().numpy()) and np.array_equal(used, full[4].cpu().numpy())
+    nkey, nsyms, _, _ = block_transform_native(blk)
+    assert key == nkey and np.array_equal(syms, nsyms)
+
+
+@pytest.mark.parametrize("route", ["bwt", "hybrid", "compress_file"])
+def test_level9_routes_match_compress_cpu(cuda, route, monkeypatch, tmp_path):
+    """The bwt stage (device-only), the default hybrid and compress_file on
+    the card each equal compress_cpu at level 9, byte for byte."""
+    from tpubz_torch.kernels import bitonic
+    from tpubz_torch.stream.files import compress_file
+
+    d = _level9_data()
+    calls = bitonic.CALLS["bitonic_1op"]
+    if route == "bwt":
+        monkeypatch.setenv("TPUBZ_DEVICE_STAGE", "bwt")
+        launches = mtf_dominance.LAUNCHES
+        got = tpubz_torch.compress(d, 9, device="cuda")
+        assert mtf_dominance.LAUNCHES == launches
+    elif route == "hybrid":
+        monkeypatch.delenv("TPUBZ_DEVICE_STAGE")
+        monkeypatch.delenv("TPUBZ_HYBRID_CPU")
+        got = tpubz_torch.compress(d, 9, device="cuda")
+        assert tpubz_torch.stream.api.last_stream_stats["engine"] == "hybrid"
+    else:
+        src, dst = tmp_path / "in", tmp_path / "in.bz2"
+        src.write_bytes(d)
+        compress_file(str(src), str(dst), 9, device="cuda")
+        got = dst.read_bytes()
+    st = tpubz_torch.stream.api.last_stream_stats
+    assert st["dev_blocks"] >= 1
+    assert bitonic.CALLS["bitonic_1op"] - calls == st["dev_blocks"]
+    assert got == compress_cpu(d, 9)

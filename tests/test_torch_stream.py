@@ -27,6 +27,18 @@ torch.set_num_threads(2)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+@pytest.fixture(autouse=True)
+def port_profile(tmp_path, monkeypatch):
+    """The port's rig profile, trained by every device stream, in a fresh
+    TPUBZ_TORCH_CACHE per test."""
+    from tpubz_torch.stream import rigprofile
+
+    monkeypatch.setenv("TPUBZ_TORCH_CACHE", str(tmp_path / "torch_cache"))
+    rigprofile.reset_memo()
+    yield
+    rigprofile.reset_memo()
+
+
 def _data() -> bytes:
     rng = np.random.default_rng(7)
     return (
@@ -142,15 +154,27 @@ def test_cuda_without_card_raises(monkeypatch):
         tpubz_torch.compress(b"hello", 0, device="cpu")
 
 
-def test_port_never_imports_jax():
-    """A process that imports tpubz_torch and compresses holds no jax."""
+def test_port_never_imports_jax(tmp_path):
+    """A process that imports tpubz_torch and drives compress, open,
+    BZ2Compressor and the command line holds no jax."""
     code = (
-        "import sys, tpubz_torch\n"
+        "import io, os, sys, tpubz_torch\n"
+        "from tpubz_torch import cli\n"
         "d = bytes(range(256)) * 50\n"
         "assert tpubz_torch.decompress(tpubz_torch.compress(d, 1, device='cpu')) == d\n"
+        "buf = io.BytesIO()\n"
+        "with tpubz_torch.open(buf, 'wb', device='cpu') as f:\n"
+        "    f.write(d)\n"
+        "assert tpubz_torch.decompress(buf.getvalue()) == d\n"
+        "c = tpubz_torch.BZ2Compressor(1, device='cpu')\n"
+        "assert tpubz_torch.decompress(c.compress(d) + c.flush()) == d\n"
+        "p = os.path.join(os.environ['TPUBZ_TORCH_CACHE'], 'in.txt')\n"
+        "open(p, 'wb').write(d)\n"
+        "assert cli.run(['-1', p], device='cpu') == 0\n"
+        "assert tpubz_torch.decompress(open(p + '.bz2', 'rb').read()) == d\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
     )
-    env = dict(os.environ, PYTHONPATH=ROOT)
+    env = dict(os.environ, PYTHONPATH=ROOT, TPUBZ_TORCH_CACHE=str(tmp_path))
     proc = subprocess.run(
         [sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,
         text=True, timeout=120,
@@ -164,15 +188,18 @@ def test_device_error_propagates_without_fallback(data, monkeypatch):
     import threading
 
     calls = []
-    real = DeviceBlockEncoder.transform
 
-    def flaky(self, blk):
-        calls.append(blk.size)
-        if len(calls) == 2:
-            raise RuntimeError("device fault")
-        return real(self, blk)
+    def flaky_of(real):
+        def flaky(self, blk):
+            calls.append(blk.size)
+            if len(calls) == 2:
+                raise RuntimeError("device fault")
+            return real(self, blk)
+        return flaky
 
-    monkeypatch.setattr(DeviceBlockEncoder, "transform", flaky)
+    # the stage is picked by the profile: inject into both
+    for name in ("transform", "transform_bwt"):
+        monkeypatch.setattr(DeviceBlockEncoder, name, flaky_of(getattr(DeviceBlockEncoder, name)))
     before = set(threading.enumerate())
     with pytest.raises(RuntimeError, match="device fault"):
         tpubz_torch.compress(data, 1, device="cpu")

@@ -1,26 +1,62 @@
 """tpubz_torch — the tpubz bzip2 codec ported to PyTorch and CUDA (NVIDIA Hopper).
 
-Public API:
+Public API, the surfaces of tpubz and of the stdlib ``bz2``:
   compress(data, level=9, *, device="cuda") -> bytes
+  compress_cpu(data, level=9)               -> bytes  (native CPU engine alone)
   decompress(data)                          -> bytes  (tpubz's host decoder)
+  open(filename, mode="rb", ..., device="cuda"), BZ2File
+  BZ2Compressor(compresslevel=9, *, device="cuda"), BZ2Decompressor
+  python -m tpubz_torch [bzip2 flags] [files]
 
 Layer map:
-  kernels/  BWT (torch sorts), MTF parts (torch) with the dominance count as
-            a hand-written CUDA kernel (csrc/mtf_dominance.cu, built with
-            nvcc at first use into _build/), RLE2 (torch)
-  block/    per-block device transform chain and host fetch
-  stream/   whole-stream assembly and the block pipeline
+  kernels/  BWT on a hand-written CUDA bitonic sort (csrc/bitonic.cu), MTF
+            parts (torch) with the dominance count as a hand-written CUDA
+            kernel (csrc/mtf_dominance.cu), RLE2 (torch); the CUDA sources
+            are built with nvcc at first use into _build/
+  block/    per-block device transforms (full chain, or the BWT alone) and
+            the pinned, event-synchronised host fetches
+  stream/   the hybrid scheduler (device blocks beside native CPU workers,
+            the full and bwt device stages), its measured profile, and the
+            bounded-memory file streams
+  fileobj.py, incremental.py, cli.py: the file, incremental and command
+            line surfaces on the stream layer
 
 Shared with tpubz, not copied: format/, hostref/ (RLE1 scan, bit splicing),
 block/emit.py with the native Huffman refine and emission engine, native/,
-and stream/decode.py. None of them imports jax, and neither does this
+stream/decode.py, the CPU engine pipeline of stream/api.py and the read
+sides of the surfaces. None of them imports jax, and neither does this
 package.
 
 The device is explicit. Asking for "cuda" without a card raises; the port
-never falls back to the CPU.
+never falls back to the CPU, and a device error always reaches the caller.
 """
 from tpubz.stream.decode import decompress
 
-from .stream.api import compress
+from .stream.api import compress, compress_cpu
 
-__all__ = ["compress", "decompress"]
+__all__ = [
+    "BZ2Compressor",
+    "BZ2Decompressor",
+    "BZ2File",
+    "compress",
+    "compress_cpu",
+    "decompress",
+    "open",
+]
+
+
+def __dir__():
+    return sorted(set(globals()) | set(__all__))
+
+
+def __getattr__(name):
+    # the file and incremental surfaces load on first use
+    if name in ("BZ2Compressor", "BZ2Decompressor"):
+        from . import incremental
+
+        return getattr(incremental, name)
+    if name in ("BZ2File", "open"):
+        from . import fileobj
+
+        return fileobj.TpubzFile if name == "BZ2File" else fileobj.open
+    raise AttributeError(f"module 'tpubz_torch' has no attribute {name!r}")

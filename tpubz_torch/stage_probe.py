@@ -1,4 +1,4 @@
-"""Where a level-9 stream's time goes on the card.
+"""Where a level-9 stream's time goes on the card, route by route.
 
     python3 -m tpubz_torch.stage_probe [--mib 16] [--seed 2026] [--out FILE]
 
@@ -8,29 +8,44 @@ mixed corpus plus the edge blocks (``tpubz_torch.corpus``, as
 ``chip_smoke.py`` does) and prints one JSON object, also written to
 ``--out``:
 
-- ``stages``: milliseconds per block of each stage on the dispatcher thread
-  (upload, BWT, MTF parts, the dominance kernel, RLE2, fetch), host clock
-  with ``torch.cuda.synchronize()`` after each stage, and of the native
-  emission; medians and sums over the blocks, the first block excluded;
-- ``profile``: one ``compress`` under ``torch.profiler``: wall ms, device
-  busy ms (the union of kernel and copy intervals), the idle share, the
-  kernels with the most device time, and the device ms and launches of
-  each bitonic kernel (the BWT's sorts);
-- ``window``: stream MB/s for each ordered-drain window, and of tpubz's
-  native host engine (``compress_cpu``) on the same data, in turns.
+- ``stages``: milliseconds per block of each stage of the full device chain
+  on the dispatcher thread (upload, BWT, MTF parts, the dominance kernel,
+  RLE2, fetch), host clock with ``torch.cuda.synchronize()`` after each
+  stage, and of the native emission; medians and sums over the blocks, the
+  first block excluded;
+- ``bwt_stages``: the same for the bwt stage: upload, BWT and ``fetch_bwt``
+  on the dispatcher, then the native MTF/RLE2 and emission on the host;
+- ``profile``: one device-only stream per stage under ``torch.profiler``:
+  wall ms, device busy ms (the union of kernel and copy intervals), the
+  idle share, the kernels with the most device time, and the device ms and
+  launches of each bitonic kernel (the BWT's sorts);
+- ``window``: device-only full-stage stream MB/s for each ordered-drain
+  window, and of tpubz's native host engine (``compress_cpu``), in turns;
+- ``routes``: stream MB/s of the device-only ``full`` and ``bwt`` stages,
+  the default hybrid and ``compress_cpu``, in turns, with each stream's
+  ``last_stream_stats``;
+- ``hybrid``: a sweep of the CPU pool (``TPUBZ_HYBRID_CPU``: 0, a quarter,
+  half, 1x, 2x and 3x the cores) by the hybrid window (``TPUBZ_WINDOW``)
+  for each stage, with MB/s, ``dev_blocks`` and ``cpu_blocks``;
+- ``probation``: the same for 1x the cores and window 16 by the cap on
+  device blocks in flight before a stream's first device completion.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
+from tpubz import native
 from tpubz.format.constants import block_budget
 from tpubz.format.crc import block_crc
 from tpubz.hostref.rle1 import rle1_blocks
@@ -44,6 +59,7 @@ from .kernels.suffix_sort import bwt_forward
 from .stream import api
 
 WINDOWS = (2, 5, 28)
+HYBRID_WINDOWS = (5, 16, 28)
 
 
 def _timed(fn, device):
@@ -56,13 +72,52 @@ def _timed(fn, device):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def stage_times(data: bytes, level: int, device) -> dict:
-    enc = DeviceBlockEncoder(level, device)
+@contextlib.contextmanager
+def env(**overrides):
+    """os.environ with the given TPUBZ_* overrides (None unsets), restored."""
+    saved = {k: os.environ.get(k) for k in overrides}
+    try:
+        for k, v in overrides.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = str(v)
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+DEVICE_ONLY = {
+    "full": {"TPUBZ_HYBRID_CPU": 0, "TPUBZ_DEVICE_STAGE": "full"},
+    "bwt": {"TPUBZ_HYBRID_CPU": 0, "TPUBZ_DEVICE_STAGE": "bwt"},
+}
+
+
+def _summary(rows: list[dict]) -> dict:
+    rows = rows[1:]  # the first block warms the allocator and the sorts
+    return {
+        "blocks_timed": len(rows),
+        "median_ms": {k: statistics.median(r[k] for r in rows) for k in rows[0]},
+        "sum_ms": {k: sum(r[k] for r in rows) for k in rows[0]},
+    }
+
+
+def _blocks(data: bytes, level: int):
     arr = np.frombuffer(data, np.uint8)
     out, blocks = rle1_blocks(arr, block_budget(level))
-    rows = []
     for o0, o1, i0, i1 in blocks:
-        blk, n = out[o0:o1], o1 - o0
+        yield out[o0:o1], block_crc(arr[i0:i1])
+
+
+def stage_times(data: bytes, level: int, device) -> dict:
+    enc = DeviceBlockEncoder(level, device)
+    rows = []
+    for blk, crc in _blocks(data, level):
+        n = blk.size
         row = {}
         dev, row["upload"] = _timed(lambda: enc.upload(blk), device)
         (key, last), row["bwt"] = _timed(lambda: bwt_forward(dev, n), device)
@@ -73,17 +128,34 @@ def stage_times(data: bytes, level: int, device) -> dict:
             lambda: rle2_encode(ranks.view(-1), n, used.sum() + 1), device)
         fetched, row["fetch"] = _timed(lambda: enc.fetch((key, *rle, used)), device)
         row["dispatcher_total"] = sum(row.values())
-        crc = block_crc(arr[i0:i1])
         t0 = time.perf_counter()
         enc.emit_block(*fetched, crc)
         row["native_emit"] = (time.perf_counter() - t0) * 1e3
         rows.append(row)
-    rows = rows[1:]  # the first block warms the allocator and the sorts
-    return {
-        "blocks_timed": len(rows),
-        "median_ms": {k: statistics.median(r[k] for r in rows) for k in rows[0]},
-        "sum_ms": {k: sum(r[k] for r in rows) for k in rows[0]},
-    }
+    return _summary(rows)
+
+
+def bwt_stage_times(data: bytes, level: int, device) -> dict:
+    """Per-block ms of the bwt stage: the dispatcher's upload, BWT and
+    fetch_bwt, then the host's native MTF/RLE2 and emission."""
+    enc = DeviceBlockEncoder(level, device)
+    rows = []
+    for blk, crc in _blocks(data, level):
+        n = blk.size
+        row = {}
+        dev, row["upload"] = _timed(lambda: enc.upload(blk), device)
+        (key, last), row["bwt"] = _timed(lambda: bwt_forward(dev, n), device)
+        fetched, row["fetch_bwt"] = _timed(lambda: enc.fetch_bwt((key, last, n)), device)
+        row["dispatcher_total"] = sum(row.values())
+        t0 = time.perf_counter()
+        rle2, freqs, used = native.mtf_rle2_native(fetched[1])
+        t1 = time.perf_counter()
+        enc.emit_block(fetched[0], rle2, rle2.size, freqs, used, crc)
+        t2 = time.perf_counter()
+        row["native_mtf_rle2"] = (t1 - t0) * 1e3
+        row["native_emit"] = (t2 - t1) * 1e3
+        rows.append(row)
+    return _summary(rows)
 
 
 def _union_us(intervals) -> float:
@@ -95,16 +167,18 @@ def _union_us(intervals) -> float:
     return busy
 
 
-def profile_stream(data: bytes, level: int, device) -> dict:
+def profile_stream(data: bytes, level: int, device, stage: str = "full") -> dict:
+    """One device-only stream of ``stage`` under the profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU]
     if torch.device(device).type == "cuda":
         acts.append(ProfilerActivity.CUDA)
-    api.compress(data, level, device=device)  # warm
-    with profile(activities=acts) as prof:
-        _, wall = _timed(lambda: api.compress(data, level, device=device), device)
+    with env(**DEVICE_ONLY[stage]):
+        api.compress(data, level, device=device)  # warm
+        with profile(activities=acts) as prof:
+            _, wall = _timed(lambda: api.compress(data, level, device=device), device)
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     busy_ms = _union_us((e.time_range.start, e.time_range.end) for e in dev) / 1e3
     by_name: dict = {}
@@ -113,6 +187,7 @@ def profile_stream(data: bytes, level: int, device) -> dict:
         by_name[e.name] = (ms + (e.time_range.end - e.time_range.start) / 1e3, cnt + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     return {
+        "stage": stage,
         "wall_ms": wall,
         "device_busy_ms": busy_ms,
         "idle_share": 1 - busy_ms / wall if dev else None,
@@ -124,26 +199,100 @@ def profile_stream(data: bytes, level: int, device) -> dict:
 
 
 def window_sweep(data: bytes, level: int, device, reps: int = 3) -> dict:
-    """Stream MB/s per ordered-drain window, and of tpubz's native host
-    engine on the same machine's cores (JAX-free), taken in turns."""
-    from tpubz.stream.api import compress_cpu
-
+    """Device-only full-stage stream MB/s per ordered-drain window, and of
+    tpubz's native host engine on the same machine's cores, in turns."""
     rates: dict = {w: [] for w in WINDOWS}
     host = []
     saved = api.WINDOW
     try:
-        for _ in range(reps):
-            for w in WINDOWS:
-                api.WINDOW = w
-                _, ms = _timed(lambda: api.compress(data, level, device=device), device)
-                rates[w].append(len(data) / 1e3 / ms)
-            t0 = time.perf_counter()
-            compress_cpu(data, level)
-            host.append(len(data) / 1e6 / (time.perf_counter() - t0))
+        with env(**DEVICE_ONLY["full"]):
+            for _ in range(reps):
+                for w in WINDOWS:
+                    api.WINDOW = w
+                    _, ms = _timed(lambda: api.compress(data, level, device=device), device)
+                    rates[w].append(len(data) / 1e3 / ms)
+                t0 = time.perf_counter()
+                api.compress_cpu(data, level)
+                host.append(len(data) / 1e6 / (time.perf_counter() - t0))
     finally:
         api.WINDOW = saved
     return {"default": saved, "MBps": {str(w): r for w, r in rates.items()},
             "host_engine_MBps": host}
+
+
+def _rate(data: bytes, run, device) -> dict:
+    _, ms = _timed(run, device)
+    return {"MBps": len(data) / 1e3 / ms, "stats": dict(api.last_stream_stats)}
+
+
+def route_rates(data: bytes, level: int, device, reps: int = 3) -> dict:
+    """Stream MB/s of the device-only full and bwt stages, the default
+    hybrid and compress_cpu, taken in turns."""
+    runs = {
+        "full": (DEVICE_ONLY["full"], lambda: api.compress(data, level, device=device)),
+        "bwt": (DEVICE_ONLY["bwt"], lambda: api.compress(data, level, device=device)),
+        "hybrid": ({"TPUBZ_HYBRID_CPU": None, "TPUBZ_DEVICE_STAGE": None},
+                   lambda: api.compress(data, level, device=device)),
+        "compress_cpu": ({}, lambda: api.compress_cpu(data, level)),
+    }
+    out: dict = {name: [] for name in runs}
+    for _ in range(reps):
+        for name, (overrides, run) in runs.items():
+            with env(**overrides):
+                out[name].append(_rate(data, run, device))
+    return out
+
+
+def hybrid_sweep(data: bytes, level: int, device, reps: int = 3,
+                 stages=("bwt", "full"), workers=None, windows=HYBRID_WINDOWS) -> dict:
+    """MB/s, dev_blocks and cpu_blocks of hybrid streams per stage, CPU pool
+    size (by default 0, a quarter, half, 1x, 2x and 3x the cores) and
+    window."""
+    cores = os.cpu_count() or 4
+    rows = []
+    for stage in stages:
+        for workers_n in workers or (0, cores // 4, cores // 2, cores, 2 * cores, 3 * cores):
+            for window in windows:
+                with env(TPUBZ_DEVICE_STAGE=stage, TPUBZ_HYBRID_CPU=workers_n,
+                         TPUBZ_WINDOW=window):
+                    runs = [_rate(data, lambda: api.compress(data, level, device=device),
+                                  device) for _ in range(reps)]
+                rows.append({
+                    "stage": stage, "cpu_workers": workers_n, "window": window,
+                    "MBps": [r["MBps"] for r in runs],
+                    "dev_blocks": [r["stats"]["dev_blocks"] for r in runs],
+                    "cpu_blocks": [r["stats"]["cpu_blocks"] for r in runs],
+                })
+    return {"cores": cores, "rows": rows}
+
+
+PROBATION_CAPS = (2, 4, 8, 16)
+
+
+def probation_sweep(data: bytes, level: int, device, reps: int = 3,
+                    caps=PROBATION_CAPS) -> dict:
+    """MB/s and engines of hybrid streams (1x the cores, window 16) per
+    stage and per cap on device blocks in flight before a stream's first
+    device completion (``api.PROBATION_INFLIGHT``)."""
+    cores = os.cpu_count() or 4
+    rows = []
+    saved = api.PROBATION_INFLIGHT
+    try:
+        for stage in ("bwt", "full"):
+            for cap in caps:
+                api.PROBATION_INFLIGHT = cap
+                with env(TPUBZ_DEVICE_STAGE=stage, TPUBZ_HYBRID_CPU=cores, TPUBZ_WINDOW=16):
+                    runs = [_rate(data, lambda: api.compress(data, level, device=device),
+                                  device) for _ in range(reps)]
+                rows.append({
+                    "stage": stage, "cap": cap,
+                    "MBps": [r["MBps"] for r in runs],
+                    "dev_blocks": [r["stats"]["dev_blocks"] for r in runs],
+                    "cpu_blocks": [r["stats"]["cpu_blocks"] for r in runs],
+                })
+    finally:
+        api.PROBATION_INFLIGHT = saved
+    return {"cores": cores, "default": saved, "rows": rows}
 
 
 def main(argv=None) -> int:
@@ -160,16 +309,26 @@ def main(argv=None) -> int:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip()
     data = mixed_corpus(args.mib, args.seed) + b"".join(edge_blocks().values())
-    result = {
-        "card": smi,
-        "torch": torch.__version__,
-        "cuda": torch.version.cuda,
-        "corpus": f"mixed_corpus({args.mib}, seed={args.seed}) + edge_blocks()",
-        "bytes": len(data),
-        "stages": stage_times(data, 9, "cuda"),
-        "profile": profile_stream(data, 9, "cuda"),
-        "window": window_sweep(data, 9, "cuda"),
-    }
+    with tempfile.TemporaryDirectory() as cache, env(TPUBZ_TORCH_CACHE=cache):
+        from .stream import rigprofile
+
+        rigprofile.reset_memo()
+        result = {
+            "card": smi,
+            "cpu_count": os.cpu_count(),
+            "torch": torch.__version__,
+            "cuda": torch.version.cuda,
+            "corpus": f"mixed_corpus({args.mib}, seed={args.seed}) + edge_blocks()",
+            "bytes": len(data),
+            "stages": stage_times(data, 9, "cuda"),
+            "bwt_stages": bwt_stage_times(data, 9, "cuda"),
+            "profile": [profile_stream(data, 9, "cuda", s) for s in ("full", "bwt")],
+            "window": window_sweep(data, 9, "cuda"),
+            "routes": route_rates(data, 9, "cuda"),
+            "hybrid": hybrid_sweep(data, 9, "cuda"),
+            "probation": probation_sweep(data, 9, "cuda"),
+        }
+        rigprofile.reset_memo()
     text = json.dumps(result)
     if args.out:
         with open(args.out, "w") as f:
