@@ -3,8 +3,10 @@
 
     python3 chip_smoke.py
 
-Run from the repository root on a machine with a CUDA card and nvcc. It
-builds the CUDA kernels from tpubz_torch/csrc, holds each against its plain
+Run from the repository root on a machine with a CUDA card, nvcc and g++.
+It builds the port's native host engine (tpubz_torch/native, g++) and the
+CUDA kernels (tpubz_torch/csrc, nvcc) into tpubz_torch/_build, holds each
+kernel against its plain
 PyTorch version at the level-9 shapes (tolerance 0: the codec is integer),
 checks the BWT on the card against the port's plain path on the CPU for
 real and edge blocks, and a short level-9 stream byte for byte, then drives
@@ -22,11 +24,15 @@ line; any failure raises, so the script exits non-zero without the final
 line. Without a CUDA device it exits with code 1 and prints no result.
 
 The line before the last is {"kernels": [...]}: per kernel its launches in
-the main-path run, its largest difference from the plain version, and both
-times from CUDA events. The bitonic sorts' launches are calls of their
-wrappers; stage_passes' are the launches of the two pass kernels
-(bitonic_global_pass, bitonic_tile) that it shares with the sorts, counted
-where the sorts launch them. The last line is
+the main-path run, its largest difference from the plain version, its time,
+the plain version's and the one-call PyTorch equivalent's where one exists
+(torch.sort for the sorts), all from CUDA events, and its bound: the larger
+of the bytes it must move over 3.35 TB/s and its comparisons over the 67
+TOP/s of the card's CUDA cores. The bitonic sorts' launches are calls of
+their wrappers; stage_passes' are the launches of the two pass kernels
+(bitonic_global, bitonic_tile) that it shares with the sorts, counted where
+the sorts launch them. The port imports neither tpubz nor jax, and the run
+checks that neither was loaded. The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 import hashlib
@@ -45,6 +51,10 @@ LEVEL = 9
 CORPUS_MIB = 16
 SEED = 2026
 SHORT_MIB = 3  # corpus prefix of the stream checked against the CPU path
+# the card's peaks (H100 SXM data sheet, at 700 W): HBM bytes/s, and the
+# CUDA cores' rate (the float32 row; integer comparisons issue there too)
+HBM_BYTES_PER_S = 3.35e12
+CORE_OPS_PER_S = 67e12
 
 
 def _say(phase, msg):
@@ -57,6 +67,20 @@ def _zero_counts():
     mtf_dominance.LAUNCHES = 0
     bitonic.LAUNCHES = bitonic.PASS_LAUNCHES = 0
     bitonic.CALLS.update(dict.fromkeys(bitonic.CALLS, 0))
+
+
+def _bound(nbytes, ops):
+    """(ms, "bytes" or "operations"): the least time for nbytes moved once
+    and ops comparisons, whichever is larger."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / CORE_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _no_reference_modules():
+    """Raise if a module of tpubz or of jax was loaded."""
+    loaded = [m for m in sys.modules if m.split(".")[0] in ("tpubz", "jax")]
+    if loaded:
+        raise AssertionError(f"the port loaded {loaded[:5]}")
 
 
 def _bunzip2_ok(stream, data):
@@ -99,6 +123,7 @@ def _smoke(tmp):
     import tpubz_torch
     from tpubz_torch.block.encode import block_n
     from tpubz_torch.corpus import edge_blocks, mixed_corpus
+    from tpubz_torch import native
     from tpubz_torch.kernels import _build, bitonic, mtf_dominance, suffix_sort
     from tpubz_torch.kernels.mtf import mtf_parts
     from tpubz_torch.kernels.suffix_sort import bwt_forward
@@ -112,9 +137,13 @@ def _smoke(tmp):
     ).stdout.strip()
     print(smi, flush=True)
     t0 = time.perf_counter()
+    native.get_lib()
+    t1 = time.perf_counter()
     _build.load()
     _say("device", f"device={kind!r} count={torch.cuda.device_count()} torch={torch.__version__} "
-            f"cuda={torch.version.cuda} kernel_build_s={time.perf_counter() - t0}")
+            f"cuda={torch.version.cuda} native_build_s={t1 - t0} "
+            f"kernel_build_s={time.perf_counter() - t1} libraries={native.LIB_PATH},"
+            f"{_build.LIB_PATH}")
 
     corpus = mixed_corpus(CORPUS_MIB, SEED)
     edges = edge_blocks()
@@ -155,7 +184,13 @@ def _smoke(tmp):
             raise AssertionError(f"mtf_dominance disagrees with its plain version on {name}")
     kernel_ms = _cuda_ms(lambda: mtf_dominance.ranks_from_parts(*real_parts), 50)
     plain_ms = _cuda_ms(lambda: mtf_dominance.ranks_from_parts_ref(*real_parts), 5)
+    # four int32 (nc, 256) inputs read and one written; per chunk, two
+    # comparisons for each of its 256*255/2 pairs (j < i; either case's)
+    # and 256*256 for the chunk-start ranks
+    C = mtf_dominance.CHUNK
+    mtf_bound = _bound(5 * nc * C * 4, nc * (C * (C - 1) + C * 256))
     _say("kernel", f"mtf_dominance nc={nc} kernel_ms={kernel_ms} plain_ms={plain_ms} "
+            f"bound_us={mtf_bound[0] * 1e3} bound_by={mtf_bound[1]} "
             f"(CUDA events, inputs=corpus_block0)")
 
     # the bitonic kernels against their plain versions at 2^20, exactly:
@@ -200,31 +235,47 @@ def _smoke(tmp):
                 f"max_abs_err={err} tolerance=0")
         if mismatches:
             raise AssertionError(f"{name} disagrees with its plain version on {inputs}")
-    # kernel and plain ms at the main path's shape, and the library radix
-    # sort's (which always returns indices too) beside them
-    lib_ms = _cuda_ms(lambda: torch.sort(k64), 20)
-    sort_ms = {
-        "bitonic_1op": (_cuda_ms(lambda: bitonic.bitonic_1op(k64), 20),
-                        _cuda_ms(lambda: bitonic.bitonic_1op_ref(k64), 3)),
-        "bitonic_2op": (_cuda_ms(lambda: bitonic.bitonic_2op(k64, pos), 20),
-                        _cuda_ms(lambda: bitonic.bitonic_2op_ref(k64, pos), 3)),
+    # kernel and plain ms at the main path's shape, torch.sort's (a radix
+    # sort that always returns indices too) beside them, the kernel
+    # launches of one call, and the bound: each input read and each output
+    # written once, against 210 * n / 2 comparisons
+    def launches_of(run):
+        before = bitonic.PASS_LAUNCHES
+        run()
+        torch.cuda.synchronize()
+        return bitonic.PASS_LAUNCHES - before
+
+    compares = len(bitonic.network(bitonic.MAX_LOG2)) * L // 2
+    sort_cases = {
+        "bitonic_1op": ("int64", lambda: bitonic.bitonic_1op(k64),
+                        lambda: bitonic.bitonic_1op_ref(k64), lambda: torch.sort(k64),
+                        _bound(2 * L * 8, compares)),
+        "bitonic_2op": ("int64", lambda: bitonic.bitonic_2op(k64, pos),
+                        lambda: bitonic.bitonic_2op_ref(k64, pos), lambda: torch.sort(k64),
+                        _bound(2 * L * 12, compares)),
+        "bitonic_2op_i32": ("int32", lambda: bitonic.bitonic_2op(k32, p32),
+                            lambda: bitonic.bitonic_2op_ref(k32, p32), lambda: torch.sort(k32),
+                            _bound(2 * L * 8, compares)),
     }
-    for name, (ms, plain) in sort_ms.items():
-        _say("kernel", f"{name} n={L} keys=int64 kernel_ms={ms} plain_ms={plain} "
-                f"torch_sort_ms={lib_ms} (CUDA events, inputs=i64_round_block0)")
-    i32_ms = (_cuda_ms(lambda: bitonic.bitonic_2op(k32, p32), 20),
-              _cuda_ms(lambda: bitonic.bitonic_2op_ref(k32, p32), 3),
-              _cuda_ms(lambda: torch.sort(k32), 20))
-    _say("kernel", f"bitonic_2op n={L} keys=int32 kernel_ms={i32_ms[0]} plain_ms={i32_ms[1]} "
-            f"torch_sort_ms={i32_ms[2]} (CUDA events, inputs=i32_dup)")
+    sort_ms = {}
+    for name, (keys, run, plain, lib, bound) in sort_cases.items():
+        sort_ms[name] = (_cuda_ms(run, 20), _cuda_ms(plain, 3), _cuda_ms(lib, 20), bound)
+        ms, plain_t, lib_t, _ = sort_ms[name]
+        _say("kernel", f"{name.removesuffix('_i32')} n={L} keys={keys} kernel_ms={ms} "
+                f"plain_ms={plain_t} torch_sort_ms={lib_t} "
+                f"pass_launches_per_call={launches_of(run)} bound_us={bound[0] * 1e3} "
+                f"bound_by={bound[1]} (CUDA events, "
+                f"inputs={'i64_round_block0' if keys == 'int64' else 'i32_dup'})")
     stage_ms = {}
     for case, js in stages.items():
         ms = _cuda_ms(lambda: bitonic.stage_passes(r32, js), 50)
         plain = _cuda_ms(lambda: bitonic.stage_passes_ref(r32.clone(), js), 5)
-        stage_ms[case] = (ms, plain)
+        bound = _bound(2 * L * 4, len(js) * L // 2)
+        stage_ms[case] = (ms, plain, None, bound)
         _say("kernel", f"stage_passes {case} js={js} n={L} keys=int32 kernel_ms={ms} "
-                f"plain_ms={plain} us_per_pass={ms * 1e3 / len(js)} (CUDA events, one call "
-                f"of {'global passes' if case.startswith('row') else 'one tile launch'}, "
+                f"plain_ms={plain} us_per_pass={ms * 1e3 / len(js)} "
+                f"pass_launches_per_call={launches_of(lambda: bitonic.stage_passes(r32, js))} "
+                f"bound_us={bound[0] * 1e3} bound_by={bound[1]} (CUDA events, one call, "
                 f"host launch included)")
 
     # the BWT on the card against the port's plain path on the CPU, for
@@ -284,19 +335,17 @@ def _smoke(tmp):
         raise AssertionError(f"bitonic calls {sort_calls} for {blocks} blocks")
     if pass_launches < sort_launches:
         raise AssertionError(f"{pass_launches} pass-kernel launches for {sort_launches} sorts")
-    if "jax" in sys.modules:
-        raise AssertionError("jax was imported")
+    _no_reference_modules()
     mb = len(data) / 1e6
     _say("path", f"blocks={blocks} mtf_dominance_launches={launches} "
             f"bitonic_launches={sort_launches} bitonic_calls={sort_calls} "
             f"pass_kernel_launches={pass_launches} MB={mb} seconds={dt} "
-            f"MBps={mb / dt} jax_imported=False")
+            f"MBps={mb / dt} tpubz_imported=False jax_imported=False")
 
     stage_bwt(tpubz_torch, data, stream)
     hybrid(tpubz_torch, data, stream, tmp)
     files(tpubz_torch, short, got, tmp)
-    if "jax" in sys.modules:
-        raise AssertionError("jax was imported")
+    _no_reference_modules()
 
     sorts = [
         ("bitonic_1op", "tools/probe_pallas_sort.py:110", sort_calls["bitonic_1op"],
@@ -314,6 +363,9 @@ def _smoke(tmp):
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
+        "bound_ms": mtf_bound[0],
+        "bound_by": mtf_bound[1],
+        "library_ms": None,
     }] + [{
         "name": name,
         "route": "cuda",
@@ -323,6 +375,9 @@ def _smoke(tmp):
         "max_abs_err": sort_err[name],
         "ms": times[0],
         "plain_ms": times[1],
+        "bound_ms": times[3][0],
+        "bound_by": times[3][1],
+        "library_ms": times[2],
     } for name, replaces, n, times in sorts]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

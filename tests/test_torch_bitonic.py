@@ -197,3 +197,150 @@ def test_bwt_forward_at_padding_edges(n):
     assert np.array_equal(last.numpy()[:n], hlast)
     assert not last.numpy()[n:].any()
     assert suffix_sort.padded_length(n) == 1 << (n - 1).bit_length()
+
+
+# (tile_log2, regs_log2); a 2^14 tile takes 2^5 registers
+_SHAPES = [(12, 3), (12, 4), (13, 3), (13, 4), (14, 4)]
+
+
+def _check_launch_limits(launches, log2n, tile_log2, fuse):
+    t = min(tile_log2, log2n)
+    for launch in launches:
+        if launch[0] == "global":
+            _, k, j_lo, r = launch
+            assert 1 <= r <= fuse and j_lo >= t and k > j_lo + r - 1
+            continue
+        _, lt, R, groups = launch
+        assert lt == t and 1 <= R <= min(bitonic.MAX_REGS_LOG2, t)
+        assert t - R <= bitonic.tile_threads_log2(R)
+        assert 1 <= len(groups) <= bitonic.MAX_GROUPS
+        assert sum(len(ps) for _, ps in groups) <= bitonic.MAX_TILE_PASSES
+        for bits, ps in groups:
+            assert len(bits) == R and list(bits) == sorted(set(bits)) and max(bits) < t
+            assert ps and all(j in bits for _, j in ps)
+
+
+@pytest.mark.parametrize("tile_log2,regs_log2", _SHAPES, ids=["t12r3", "t12r4", "t13r3", "t13r4", "t14"])
+@pytest.mark.parametrize("log2n", range(1, 21))
+def test_plan_runs_exactly_the_network(log2n, tile_log2, regs_log2):
+    """For every fuse width, the launch plan of a sort of 2^log2n keys runs
+    network(log2n), pass for pass and in order, within the kernels' limits
+    (tile threads, register bits, passes and groups per launch), and its
+    encoding has one record per launch."""
+    for fuse in range(1, bitonic.MAX_REGS_LOG2 + 1):
+        launches = bitonic.plan(bitonic.network(log2n), log2n, tile_log2, regs_log2, fuse)
+        assert bitonic.plan_passes(launches) == bitonic.network(log2n)
+        _check_launch_limits(launches, log2n, tile_log2, fuse)
+        words = bitonic.encode(launches)
+        assert words.count(0) >= sum(1 for x in launches if x[0] == "global")
+        assert words[0] in (0, 1)
+
+
+@pytest.mark.parametrize("js", [[19, 18], list(range(19, 11, -1)), [9, 8], list(range(9, 1, -1)),
+                                [0, 15, 3, 11, 10, 12, 1], [5, 5, 4, 19, 19, 0]],
+                         ids=["row2", "row8", "lane2", "lane8", "mixed", "repeats"])
+def test_plan_runs_the_given_stage_passes(js):
+    """stage_passes' plan at 2^20 runs the given js, in order (k = 20)."""
+    for tile_log2, regs_log2 in _SHAPES:
+        for fuse in (1, 4, 5):
+            passes = [(20, j) for j in js]
+            launches = bitonic.plan(passes, 20, tile_log2, regs_log2, fuse)
+            assert bitonic.plan_passes(launches) == passes
+            _check_launch_limits(launches, 20, tile_log2, fuse)
+
+
+def test_default_plan_cuts_the_launches():
+    """The default plan of a 2^20 sort makes 21 kernel launches, against the
+    55 of one launch per long pass and per tile run; a 2^13 tile with fuse 5
+    makes 17 and a 2^14 tile 14."""
+    assert len(bitonic.plan(bitonic.network(20), 20)) == 21
+    assert len(bitonic.plan(bitonic.network(20), 20, 13, 4, 5)) == 17
+    assert len(bitonic.plan(bitonic.network(20), 20, 14, 4, 5)) == 14
+
+
+def _insert_zeros(x, bits):
+    for b in bits:
+        x = ((x >> b) << (b + 1)) | (x & ((1 << b) - 1))
+    return x
+
+
+def _cex_regs(rk, rp, lo, hi, desc):
+    """The kernels' compare-exchange on register columns lo, hi: swap only
+    where the pair is strictly out of order for its direction."""
+    a, b = rk[:, lo].copy(), rk[:, hi].copy()
+    sw = np.where(desc, a < b, b < a)
+    rk[:, lo], rk[:, hi] = np.where(sw, b, a), np.where(sw, a, b)
+    if rp is not None:
+        pa, pb = rp[:, lo].copy(), rp[:, hi].copy()
+        rp[:, lo], rp[:, hi] = np.where(sw, pb, pa), np.where(sw, pa, pb)
+
+
+def _emulate(keys, payload, launches, log2n):
+    """The plan on numpy arrays with the kernels' index math: each thread's
+    base (its index with zeros at the register bits), its registers'
+    offsets, the direction from bit k of the lower index (a register bit's
+    or the thread's), the passes on register columns. Every group's threads
+    cover each tile exactly once."""
+    n = 1 << log2n
+    keys = keys.copy()
+    payload = None if payload is None else payload.copy()
+    for launch in launches:
+        if launch[0] == "global":
+            _, k, j_lo, r = launch
+            t = np.arange(n >> r)
+            low = t & ((1 << j_lo) - 1)
+            base = ((t - low) << r) | low
+            idx = base[:, None] + (np.arange(1 << r) << j_lo)[None, :]
+            steps = [(q, k, -1) for q in range(r - 1, -1, -1)]
+            groups = [(idx, base, steps)]
+        else:
+            _, t, R, glist = launch
+            tiles = np.arange(n >> t) << t
+            tid = np.arange((1 << t) >> R)
+            groups = []
+            for bits, ps in glist:
+                tbase = (tiles[:, None] + _insert_zeros(tid, bits)[None, :]).reshape(-1)
+                off = np.array([sum(((c >> i) & 1) << bits[i] for i in range(R))
+                                for c in range(1 << R)])
+                steps = [(bits.index(j), k, bits.index(k) if k in bits else -1) for k, j in ps]
+                groups.append((tbase[:, None] + off[None, :], tbase, steps))
+        for idx, base, steps in groups:
+            flat = np.sort(idx.reshape(-1))
+            assert np.array_equal(flat, np.arange(n))
+            rk = keys[idx]
+            rp = None if payload is None else payload[idx]
+            E = idx.shape[1]
+            for q, k, qk in steps:
+                for c in range(E):
+                    if c >> q & 1:
+                        continue
+                    desc = (np.full(base.shape, (c >> qk) & 1, bool) if qk >= 0
+                            else ((base >> k) & 1).astype(bool))
+                    _cex_regs(rk, rp, c, c | 1 << q, desc)
+            keys[idx] = rk
+            if payload is not None:
+                payload[idx] = rp
+    return keys, payload
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int64], ids=["i32", "i64"])
+@pytest.mark.parametrize("log2n,tile_log2,regs_log2,fuse", [
+    (4, 3, 2, 1), (9, 6, 2, 2), (11, 7, 3, 3), (12, 9, 4, 4), (13, 8, 5, 5), (14, 13, 4, 4),
+])
+def test_emulated_plan_equals_the_plain_sort(log2n, tile_log2, regs_log2, fuse, dtype):
+    """Run group by group with the kernels' index math, the plan of a sort
+    gives bitonic_2op_ref's keys and payload on keys with many ties, and
+    stage_passes' plan gives stage_passes_ref's keys: tolerance 0."""
+    rng = np.random.default_rng(log2n)
+    n = 1 << log2n
+    keys = rng.integers(0, max(n // 8, 2), n).astype(dtype)
+    payload = rng.permutation(n).astype(np.int32)
+    launches = bitonic.plan(bitonic.network(log2n), log2n, tile_log2, regs_log2, fuse)
+    gk, gp = _emulate(keys, payload, launches, log2n)
+    rk, rp = bitonic.bitonic_2op_ref(torch.from_numpy(keys), torch.from_numpy(payload))
+    assert np.array_equal(gk, rk.numpy()) and np.array_equal(gp, rp.numpy())
+    js = [log2n - 1, 0, log2n - 2, 1, 2, log2n - 1]
+    launches = bitonic.plan([(log2n, j) for j in js], log2n, tile_log2, regs_log2, fuse)
+    gk, _ = _emulate(keys, None, launches, log2n)
+    want = bitonic.stage_passes_ref(torch.from_numpy(keys.copy()), js)
+    assert np.array_equal(gk, want.numpy())

@@ -101,10 +101,9 @@ def test_every_entry_point_passes_pointers_as_void_p():
     assert argtypes.count(ctypes.c_void_p) == 6 and argtypes[5] is ctypes.c_int
     ints = ctypes.POINTER(ctypes.c_int)
     for key in ("i32", "i64"):
-        assert _build.SIGNATURES[f"tpubz_bitonic_sort_{key}"] == [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ints, ctypes.c_void_p]
-        assert _build.SIGNATURES[f"tpubz_bitonic_stage_{key}"] == [
-            ctypes.c_void_p, ctypes.c_int, ints, ctypes.c_int, ints, ctypes.c_void_p]
+        assert _build.SIGNATURES[f"tpubz_bitonic_run_{key}"] == [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ints, ctypes.c_int, ints,
+            ctypes.c_void_p]
 
 
 def test_every_entry_point_is_defined_in_csrc():

@@ -185,6 +185,50 @@ def test_bitonic_matches_plain(cuda, log2n, dtype, op):
     assert torch.equal(keys, original)
 
 
+def _periodic_round_keys(device):
+    """The int64 keys of the first doubling round of a near-periodic level-9
+    block (b"ab" * 449_000 + b"c"): long runs of equal keys."""
+    from tpubz_torch.kernels import suffix_sort
+
+    blk = edge_blocks()["near_periodic"]
+    data = torch.frombuffer(bytearray(blk), dtype=torch.uint8).to(device)
+    return suffix_sort.round_keys(suffix_sort.seed_rank(data), 3)
+
+
+@pytest.mark.parametrize("shape", [(12, 4, 4), (13, 4, 5), (13, 3, 4), (14, 4, 5)],
+                         ids=["t12f4", "t13f5", "t13r3", "t14"])
+@pytest.mark.parametrize("keys_kind", ["i32_three_values", "i64_three_values",
+                                       "i64_periodic_round"])
+def test_bitonic_plans_match_plain_at_2_20(cuda, monkeypatch, keys_kind, shape):
+    """At 2^20, under the default plan and the other measured plan shapes,
+    both sorts equal their plain versions exactly on duplicate-heavy keys
+    (three values, int32 and int64) and on the round keys of a periodic
+    block, payload order on equal keys included."""
+    from tpubz_torch.kernels import bitonic
+
+    tile_log2, regs_log2, fuse = shape
+    monkeypatch.setattr(bitonic, "TILE_LOG2", tile_log2)
+    monkeypatch.setattr(bitonic, "REGS_LOG2", regs_log2)
+    monkeypatch.setattr(bitonic, "FUSE", fuse)
+    n = 1 << 20
+    rng = np.random.default_rng(len(keys_kind))
+    if keys_kind == "i64_periodic_round":
+        keys = _periodic_round_keys(cuda)
+    else:
+        dtype = np.int32 if keys_kind.startswith("i32") else np.int64
+        keys = torch.from_numpy(rng.integers(0, 3, n).astype(dtype)).to(cuda)
+    payload = torch.from_numpy(rng.permutation(n).astype(np.int32)).to(cuda)
+    before = bitonic.PASS_LAUNCHES
+    gk, gp = bitonic.bitonic_2op(keys, payload)
+    g1 = bitonic.bitonic_1op(keys)
+    torch.cuda.synchronize()
+    launches = len(bitonic.plan(bitonic.network(20), 20, tile_log2, regs_log2, fuse))
+    assert bitonic.PASS_LAUNCHES - before == 2 * launches
+    rk, rp = bitonic.bitonic_2op_ref(keys, payload)
+    assert torch.equal(gk, rk) and torch.equal(gp, rp)
+    assert torch.equal(g1, bitonic.bitonic_1op_ref(keys))
+
+
 @pytest.mark.parametrize("js", [[19, 18], [9, 8, 7, 6, 5, 4, 3, 2], [0, 15, 3, 11, 10, 12, 1]],
                          ids=["row2", "lane8", "mixed"])
 @pytest.mark.parametrize("dtype", [np.int32, np.int64], ids=["i32", "i64"])

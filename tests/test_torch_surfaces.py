@@ -166,13 +166,42 @@ def test_compressor_empty_stream_and_use_after_flush():
 
 
 def test_decompressor_is_tpubz_and_reads_stdlib_streams():
-    import tpubz.incremental
+    """The port's own BZ2Decompressor gives tpubz's outputs, state and
+    errors on the same chunked feeds: its own and C bzip2's (stdlib)
+    streams, trailing bytes, max_length, and a corrupt block."""
+    from tpubz.incremental import BZ2Decompressor as TpubzDecompressor
 
-    assert tpubz_torch.BZ2Decompressor is tpubz.incremental.BZ2Decompressor
-    d = _payload(4, 20_000)
-    dec = tpubz_torch.BZ2Decompressor()
-    assert dec.decompress(bz2.compress(d) + b"tail") == d
-    assert dec.eof and dec.unused_data == b"tail"
+    assert tpubz_torch.BZ2Decompressor.__module__ == "tpubz_torch.incremental"
+    d = _payload(4, 200_000)
+    streams = {
+        "c_stream": bz2.compress(d, 1) + b"tail",
+        "own_stream": compress_cpu(d, 1) + b"tail",
+    }
+    corrupt = bytearray(streams["c_stream"])
+    corrupt[len(corrupt) // 2] ^= 0x10
+    streams["corrupt"] = bytes(corrupt)
+    rng = np.random.default_rng(4)
+
+    def feed(cls, blob, cuts, max_length):
+        dec, outs = cls(), []
+        try:
+            prev = 0
+            for cut in cuts + [len(blob)]:
+                outs.append(dec.decompress(blob[prev:cut], max_length))
+                prev = cut
+                while not dec.eof and not dec.needs_input:
+                    outs.append(dec.decompress(b"", max_length))
+        except (ValueError, EOFError) as e:
+            outs.append(type(e))
+        return outs, dec.eof, dec.unused_data, dec.needs_input
+
+    for name, blob in streams.items():
+        for max_length in (-1, 50_000):
+            cuts = sorted(int(c) for c in rng.integers(1, len(blob), 6))
+            got = bounded(feed, tpubz_torch.BZ2Decompressor, blob, cuts, max_length)
+            assert got == feed(TpubzDecompressor, blob, cuts, max_length), name
+            if name != "corrupt":
+                assert b"".join(got[0]) == d and got[1] and got[2] == b"tail"
 
 
 def test_module_surface_matches_stdlib():

@@ -3,7 +3,7 @@
 Public API, the surfaces of tpubz and of the stdlib ``bz2``:
   compress(data, level=9, *, device="cuda") -> bytes
   compress_cpu(data, level=9)               -> bytes  (native CPU engine alone)
-  decompress(data)                          -> bytes  (tpubz's host decoder)
+  decompress(data)                          -> bytes  (the native host decoder)
   open(filename, mode="rb", ..., device="cuda"), BZ2File
   BZ2Compressor(compresslevel=9, *, device="cuda"), BZ2Decompressor
   python -m tpubz_torch [bzip2 flags] [files]
@@ -20,19 +20,22 @@ Layer map:
             bounded-memory file streams
   fileobj.py, incremental.py, cli.py: the file, incremental and command
             line surfaces on the stream layer
+  native/   the host engine (C++ built with g++ at first use into _build/):
+            RLE1 scan, the CPU engine's block transform, MTF/RLE2 of the bwt
+            stage, Huffman refinement and emission, the block decoder
+  format/, hostref/, block/emit.py, stream/decode.py: the format constants
+            and CRC, bit packing and splicing, the RLE1 block feed, block
+            emission and the block-parallel decoder, on native/
 
-Shared with tpubz, not copied: format/, hostref/ (RLE1 scan, bit splicing),
-block/emit.py with the native Huffman refine and emission engine, native/,
-stream/decode.py, the CPU engine pipeline of stream/api.py and the read
-sides of the surfaces. None of them imports jax, and neither does this
-package.
+The package stands alone: it imports torch, numpy and the standard library,
+never tpubz and never jax. Its host engine is its own copy of tpubz's C++
+sources, so its streams equal tpubz's and C bzip2's byte for byte.
 
 The device is explicit. Asking for "cuda" without a card raises; the port
 never falls back to the CPU, and a device error always reaches the caller.
 """
-from tpubz.stream.decode import decompress
-
 from .stream.api import compress, compress_cpu
+from .stream.decode import decompress
 
 __all__ = [
     "BZ2Compressor",

@@ -6,7 +6,7 @@ transforms; ``fetch`` brings back what the host emission needs, as
 ``tpubz.block.encode.materialize`` returns it. ``transform_bwt`` and
 ``fetch_bwt`` are the bwt-only stage: the device runs the suffix sort and the
 host gets the key and the last column. Huffman refinement and bit emission
-stay in tpubz's native engine (``tpubz.block.emit.emit_block``).
+run in the port's native engine (``block/emit.py``).
 
 The fetches come in two halves so that the thread launching device work
 never waits for a copy: ``fetch_async`` / ``fetch_bwt_async`` enqueue the
@@ -24,12 +24,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tpubz.block.emit import emit_block
-
 from ..kernels.mtf import mtf_ranks
 from ..kernels.mtf_dominance import CHUNK as MTF_CHUNK
 from ..kernels.rle2 import rle2_encode
 from ..kernels.suffix_sort import bwt_forward
+from .emit import emit_block
 
 
 def block_n(level: int) -> int:
@@ -161,5 +160,5 @@ class DeviceBlockEncoder:
     emit_block = staticmethod(emit_block)
 
     def encode_block(self, rle1_block: np.ndarray, crc: int):
-        """One block's packed bits (a tpubz BitAccum)."""
+        """One block's packed bits (a ``BitAccum``)."""
         return self.emit_block(*self.fetch(self.transform(rle1_block)), crc)

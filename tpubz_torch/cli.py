@@ -1,22 +1,161 @@
 """bzip2-compatible command line of the port: ``python -m tpubz_torch``.
 
-The counterpart of ``tpubz/cli.py``, with its flags, parsed by
-``tpubz.cli.parse_args``, and its file semantics (delete inputs on success
-unless -k, refuse to overwrite without -f, -t decodes and checks CRCs,
-invoked-as bunzip2/bzcat, stdin to stdout when no file is named). Encoding
-runs on the port's scheduler with device blocks on the device given to
-``run`` ("cuda" from ``main``); ``--host-engine`` runs tpubz's native CPU
-engine alone. Decoding is tpubz's host decoder. ``--profile=DIR`` writes a
-``torch.profiler`` trace.
+The counterpart of ``tpubz/cli.py``: its flags (combined short flags,
+``-1..-9``, ``--fast``/``--best``, bunzip2/bzcat by the program name, stdin
+to stdout when no file is named) and C bzip2's file semantics (inputs
+deleted on success unless -k, no overwrite without -f, -t decodes and
+checks the CRCs). Encoding runs on the port's scheduler with device blocks
+on the device given to ``run`` ("cuda" from ``main``); ``--host-engine``
+runs the native CPU engine alone. Decoding is the port's host decoder.
+``--profile=DIR`` writes a ``torch.profiler`` trace; ``--iterations=N``
+sets the port's Huffman refinement count.
 """
 from __future__ import annotations
 
+import logging
 import os
 import sys
 
-from tpubz.cli import _decompress_fn, _log, _setup_logging, parse_args
-
 PROG = "tpubz_torch"
+VERSION = "0.1.0"
+LICENSE = f"""{PROG} — the bzip2 codec of tpubz on PyTorch and CUDA.
+Implements the bzip2 stream format of Julian Seward's bzip2.
+This software is provided as-is, without warranty."""
+
+HELP = f"""usage: {PROG} [flags and input files in any order]
+
+   -h --help           print this message
+   -d --decompress     force decompression
+   -z --compress       force compression
+   -k --keep           keep (don't delete) input files
+   -f --force          overwrite existing output files
+   -t --test           test compressed file integrity
+   -c --stdout         output to standard out
+   -q --quiet          suppress noncritical error messages
+   -v --verbose        be verbose (a 2nd -v gives more)
+   -L --license        display software version & license
+   -V --version        display software version & license
+   -s --small          accepted; the same engine runs
+   -1 .. -9            set block size to 100k .. 900k
+   --fast              alias for -1
+   --best              alias for -9
+   --iterations=N      Huffman refinement passes (default 8, min 4;
+                       more passes can only shrink output)
+   --workfactor=N      accepted (0-250) for bzip2's flag surface; unused
+   --host-engine       compress on the native CPU engine alone
+   --device-engine     compress with device blocks (the default)
+   --profile=DIR       write a torch.profiler trace of the run to DIR
+
+   If invoked as `bunzip2', default action is to decompress.
+              as `bzcat', default action is to decompress to stdout.
+
+   If no file names are given, {PROG} compresses or decompresses
+   from standard input to standard output. You can combine
+   short flags, so `-v -4' means the same as -v4 or -4v, &c."""
+
+
+class Opts:
+    def __init__(self):
+        self.mode = "zip"  # zip | unzip | test
+        self.level = 9
+        self.keep = False
+        self.force = False
+        self.stdout = False
+        self.quiet = False
+        self.small = False
+        self.verbosity = 0
+        self.files: list[str] = []
+        self.engine = "device"  # device | host
+        self.iterations: int | None = None
+        self.profile: str | None = None
+        self.workfactor: int | None = None  # parsed, unused
+
+
+_LONG_FLAGS = {
+    "--help": "h", "--decompress": "d", "--compress": "z", "--keep": "k",
+    "--force": "f", "--test": "t", "--stdout": "c", "--quiet": "q",
+    "--verbose": "v", "--license": "L", "--version": "V", "--small": "s",
+    "--fast": "1", "--best": "9",
+}
+
+
+def _int_value(arg: str) -> int:
+    try:
+        return int(arg.split("=", 1)[1])
+    except ValueError:
+        raise SystemExit(f"{PROG}: bad value in {arg} (see --help)") from None
+
+
+def parse_args(argv: list[str], prog: str = PROG) -> Opts:
+    o = Opts()
+    base = os.path.basename(prog)
+    if base.startswith("bunzip2"):
+        o.mode = "unzip"
+    elif base.startswith("bzcat"):
+        o.mode = "unzip"
+        o.stdout = True
+
+    def short(ch: str):
+        if ch == "h":
+            print(HELP)
+            raise SystemExit(0)
+        if ch in "LV":
+            print(f"{PROG} {VERSION}\n{LICENSE}")
+            raise SystemExit(0)
+        if ch in "123456789":
+            o.level = int(ch)
+            return
+        switches = {"d": ("mode", "unzip"), "z": ("mode", "zip"), "t": ("mode", "test"),
+                    "k": ("keep", True), "f": ("force", True), "c": ("stdout", True),
+                    "q": ("quiet", True), "s": ("small", True)}
+        if ch == "v":
+            o.verbosity += 1
+        elif ch in switches:
+            setattr(o, *switches[ch])
+        else:
+            raise SystemExit(f"{PROG}: bad flag -{ch} (see --help)")
+
+    for arg in argv:
+        if arg.startswith("--"):
+            if arg.startswith("--iterations="):
+                o.iterations = _int_value(arg)
+            elif arg.startswith("--profile="):
+                o.profile = arg.split("=", 1)[1]
+            elif arg.startswith("--workfactor="):
+                o.workfactor = _int_value(arg)
+                if not 0 <= o.workfactor <= 250:
+                    raise SystemExit(f"{PROG}: workfactor must be 0..250 (see --help)")
+            elif arg == "--host-engine":
+                o.engine = "host"
+            elif arg == "--device-engine":
+                o.engine = "device"
+            elif arg in _LONG_FLAGS:
+                short(_LONG_FLAGS[arg])
+            else:
+                raise SystemExit(f"{PROG}: bad flag {arg} (see --help)")
+        elif arg.startswith("-") and len(arg) > 1:
+            for ch in arg[1:]:
+                short(ch)
+        else:
+            o.files.append(arg)
+    return o
+
+
+def _log(o: Opts, level: int, msg: str) -> None:
+    if o.verbosity >= level and not o.quiet:
+        print(msg, file=sys.stderr)
+
+
+def _setup_logging(o: Opts) -> None:
+    """-v..-vvvvv map to log levels of the ``tpubz_torch`` logger."""
+    level = (
+        logging.ERROR if o.verbosity == 0 or o.quiet
+        else logging.WARNING if o.verbosity == 1
+        else logging.INFO if o.verbosity in (2, 3)
+        else logging.DEBUG
+    )
+    logging.basicConfig(stream=sys.stderr, level=level, format=f"{PROG}: %(message)s")
+    logging.getLogger("tpubz_torch").setLevel(level)
 
 
 def run(argv: list[str], prog: str = PROG, *, device="cuda") -> int:
@@ -37,16 +176,15 @@ def _refuse(out_name: str) -> None:
 
 
 def _run(o, dev) -> int:
-    """tpubz's ``_run`` with the port's encoders: ``dev`` None means the CPU
-    engine alone."""
+    """The files or stdin through the port's codecs: ``dev`` None means the
+    CPU engine alone."""
+    from .format.constants import set_huffman_iters
     from .stream import api
+    from .stream.decode import decompress
     from .stream.files import compress_file, compress_stream, decompress_file, decompress_stream
 
     if o.iterations is not None:
-        from tpubz.format.constants import set_huffman_iters
-
         set_huffman_iters(o.iterations)
-    decompress = _decompress_fn(o.trace_bits) if o.mode in ("unzip", "test") else None
 
     def compress(data: bytes) -> bytes:
         if dev is None:
@@ -58,11 +196,7 @@ def _run(o, dev) -> int:
         if o.mode == "zip":
             compress_stream(sys.stdin.buffer, sys.stdout.buffer, o.level, device=dev)
         elif o.mode == "unzip":
-            if o.trace_bits:
-                # the traced scalar decoder needs the whole buffer
-                sys.stdout.buffer.write(decompress(sys.stdin.buffer.read()))
-            else:
-                decompress_stream(sys.stdin.buffer, sys.stdout.buffer)
+            decompress_stream(sys.stdin.buffer, sys.stdout.buffer)
         else:
             decompress(sys.stdin.buffer.read())
             _log(o, 1, "stdin: ok")
@@ -71,11 +205,7 @@ def _run(o, dev) -> int:
     rc = 0
     for fname in o.files:
         try:
-            if (
-                o.mode in ("zip", "unzip")
-                and not o.stdout
-                and not (o.trace_bits and o.mode == "unzip")
-            ):
+            if o.mode in ("zip", "unzip") and not o.stdout:
                 # streaming paths: bounded memory for files of any size
                 if o.mode == "zip":
                     out_name = fname + ".bz2"

@@ -1,0 +1,43 @@
+"""bzip2 stream-format constants, and the port's Huffman refinement count.
+
+The values are the format's (those of ``tpubz/format/constants.py``). The
+refinement count is the port's own setting: ``set_huffman_iters`` (the
+command line's ``--iterations``) changes it for this package only.
+"""
+import os
+
+# 48-bit block magic: BCD of pi
+BLOCK_MAGIC = 0x314159265359
+# 48-bit stream footer magic: BCD of sqrt(pi)
+FOOTER_MAGIC = 0x177245385090
+
+STREAM_MAGIC = b"BZh"  # followed by ASCII '1'..'9'
+
+
+def block_budget(level: int) -> int:
+    """Post-RLE1 bytes of a block at ``level`` (1..9)."""
+    return level * 100_000 - 19
+
+
+# Huffman refinement passes. The emitter keeps the best snapshot by exact
+# emitted size, so more passes can only shrink the output; the first 4 are
+# C bzip2's trajectory, which pins the output at or below C's size.
+HUFFMAN_ITERS = 8
+
+_iters_override: int | None = None
+
+
+def huffman_iters() -> int:
+    """The refinement pass count: ``set_huffman_iters``'s value, else
+    TPUBZ_ITERATIONS, else 8; never below 4."""
+    if _iters_override is not None:
+        return _iters_override
+    v = os.environ.get("TPUBZ_ITERATIONS")
+    return max(4, int(v)) if v else HUFFMAN_ITERS
+
+
+def set_huffman_iters(n: int | None) -> None:
+    """Set the refinement pass count (clamped to >= 4); None restores the
+    default."""
+    global _iters_override
+    _iters_override = None if n is None else max(4, int(n))

@@ -36,12 +36,9 @@ _P = ctypes.c_void_p
 _INTS = ctypes.POINTER(ctypes.c_int)  # host int array, or an int out argument
 SIGNATURES = {
     "tpubz_mtf_dominance": [_P, _P, _P, _P, _P, ctypes.c_int, _P],
-    # keys, payload or None, n, launched (out), stream
-    "tpubz_bitonic_sort_i32": [_P, _P, ctypes.c_int, _INTS, _P],
-    "tpubz_bitonic_sort_i64": [_P, _P, ctypes.c_int, _INTS, _P],
-    # keys, n, js, len(js), launched (out), stream
-    "tpubz_bitonic_stage_i32": [_P, ctypes.c_int, _INTS, ctypes.c_int, _INTS, _P],
-    "tpubz_bitonic_stage_i64": [_P, ctypes.c_int, _INTS, ctypes.c_int, _INTS, _P],
+    # keys, payload or None, n, plan, len(plan), launched (out), stream
+    "tpubz_bitonic_run_i32": [_P, _P, ctypes.c_int, _INTS, ctypes.c_int, _INTS, _P],
+    "tpubz_bitonic_run_i64": [_P, _P, ctypes.c_int, _INTS, ctypes.c_int, _INTS, _P],
 }
 
 _lock = threading.Lock()

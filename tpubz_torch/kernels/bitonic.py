@@ -11,10 +11,13 @@ bit for bit as the Pallas body ``_bitonic_body`` leaves them, payload order
 on duplicate keys included.
 
 For a CUDA tensor each function launches the hand-written kernels of
-``csrc/bitonic.cu`` on the current stream; for a CPU tensor it runs the
-plain torch version (``*_ref``), which writes every pass in the pair-view
-form of ``probe_pallas_pass.py:_cex_row`` (min and max of the two halves of
-a (..., 2, d) view), with no gathers.
+``csrc/bitonic.cu`` on the current stream, following a launch plan that
+``plan`` makes here from the pass list: tile launches, each a list of
+groups of passes run in registers over a tile in shared memory, and
+global launches of up to ``FUSE`` consecutive long passes each. For a CPU
+tensor it runs the plain torch version (``*_ref``), which writes every pass
+in the pair-view form of ``probe_pallas_pass.py:_cex_row`` (min and max of
+the two halves of a (..., 2, d) view), with no gathers.
 
 Keys are int32 or int64, payloads int32; the length is a power of two up
 to 2^20.
@@ -22,6 +25,7 @@ to 2^20.
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 
 import torch
@@ -31,12 +35,25 @@ from . import _build
 MAX_LOG2 = 20
 KEY_DTYPES = {torch.int32: "i32", torch.int64: "i64"}
 
+# The launch plan's shape, chosen from 2^20 sorts measured on an H100 (PERF.md).
+# A tile is 2^TILE_LOG2 keys in shared memory; each of its threads holds
+# 2^REGS_LOG2 elements per array in registers (more where the tile would
+# need more threads than a block may have); a global launch runs up to FUSE
+# consecutive passes of one stage.
+TILE_LOG2 = 12
+REGS_LOG2 = 4
+FUSE = 4
+MAX_TILE_LOG2 = 14  # 2^14 keys with a payload fill 192 of the 227 KB
+MAX_REGS_LOG2 = 5
+MAX_TILE_PASSES = 128  # per tile launch, the kernel's TilePlan arrays
+MAX_GROUPS = 64
+
 # calls into the kernel library in this process (CPU calls are not counted)
 LAUNCHES = 0
 # the same calls by wrapper
 CALLS = {"bitonic_1op": 0, "bitonic_2op": 0, "stage_passes": 0}
-# CUDA launches of the two pass kernels (bitonic_tile, bitonic_global_pass)
-# that those calls made
+# CUDA launches of the two pass kernels (bitonic_tile, bitonic_global) that
+# those calls made
 PASS_LAUNCHES = 0
 _launch_lock = threading.Lock()
 
@@ -113,6 +130,135 @@ def stage_passes_ref(keys: torch.Tensor, js) -> torch.Tensor:
     return keys
 
 
+def tile_threads_log2(regs_log2: int) -> int:
+    """log2 of the most threads a tile block may have (csrc/bitonic.cu's
+    max_tile_threads): 1024 with up to 8 elements a thread, else 512."""
+    return 10 if regs_log2 <= 3 else 9
+
+
+def _fill_bits(bits: set, t: int, R: int) -> tuple[int, ...]:
+    """A group's R register bits: its pass bits and filler bits. Bits below
+    R only: 0..R-1, the thread's elements consecutive. Otherwise fillers
+    from bit 5 up first, so the lanes of a warp take bits 0..4 and walk
+    consecutive elements."""
+    if max(bits) < R:
+        return tuple(range(R))
+    free = [b for b in range(t) if b not in bits]
+    pref = [b for b in free if b >= 5] + [b for b in free if R <= b < 5] + [b for b in free if b < R]
+    return tuple(sorted(bits | set(pref[: R - len(bits)])))
+
+
+def _tile_launches(run, t: int, R: int) -> list:
+    """Tile launches for a run of passes all shorter than the tile: passes
+    are packed in order into groups whose distance bits fit R register bits
+    of one kind (all below R, or none), and groups into launches within the
+    kernel's limits."""
+    groups, cur, bits = [], [], set()
+
+    def close():
+        groups.append((_fill_bits(bits, t, R), cur))
+
+    for k, j in run:
+        nb = bits | {j}
+        same_kind = max(nb) < R or min(nb) >= R
+        if cur and (len(nb) > R or not same_kind or len(cur) == MAX_TILE_PASSES):
+            close()
+            cur, nb = [], {j}
+        cur.append((k, j))
+        bits = nb
+    close()
+    launches, lg, npass = [], [], 0
+    for g in groups:
+        if lg and (len(lg) == MAX_GROUPS or npass + len(g[1]) > MAX_TILE_PASSES):
+            launches.append(("tile", t, R, lg))
+            lg, npass = [], 0
+        lg.append(g)
+        npass += len(g[1])
+    launches.append(("tile", t, R, lg))
+    return launches
+
+
+def plan(passes, log2n: int, tile_log2: int | None = None, regs_log2: int | None = None,
+         fuse: int | None = None) -> list:
+    """The launches that run ``passes`` ((k, j) pairs, in order) on 2^log2n
+    keys: ("global", k, j_lo, r) runs (k, j_lo + r - 1) .. (k, j_lo) in
+    device memory, r <= fuse, j_lo >= the tile's bits; ("tile", t, R,
+    groups) runs, over tiles of 2^t keys, each group (register bits,
+    passes) in registers, the tile in shared memory between groups.
+    Defaults: TILE_LOG2, REGS_LOG2, FUSE."""
+    tile_log2 = TILE_LOG2 if tile_log2 is None else tile_log2
+    regs_log2 = REGS_LOG2 if regs_log2 is None else regs_log2
+    fuse = FUSE if fuse is None else fuse
+    if not 1 <= tile_log2 <= MAX_TILE_LOG2 or not 1 <= regs_log2 <= MAX_REGS_LOG2:
+        raise ValueError(f"tile 2^{tile_log2}, registers 2^{regs_log2} out of range")
+    if not 1 <= fuse <= MAX_REGS_LOG2:
+        raise ValueError(f"fuse must be 1..{MAX_REGS_LOG2}, got {fuse}")
+    t = min(tile_log2, log2n)
+    R = min(regs_log2, t)
+    while t - R > tile_threads_log2(R):
+        R += 1
+    if R > MAX_REGS_LOG2:
+        raise ValueError(f"a tile of 2^{t} needs 2^{R} registers a thread")
+    launches, i = [], 0
+    while i < len(passes):
+        k, j = passes[i]
+        if j >= t:
+            r = 1
+            while (i + r < len(passes) and r < fuse and j - r >= t
+                   and passes[i + r] == (k, j - r)):
+                r += 1
+            launches.append(("global", k, j - r + 1, r))
+            i += r
+        else:
+            run = []
+            while i < len(passes) and passes[i][1] < t:
+                run.append(passes[i])
+                i += 1
+            launches += _tile_launches(run, t, R)
+    return launches
+
+
+def plan_passes(launches) -> list[tuple[int, int]]:
+    """The (k, j) passes a plan runs, in order."""
+    out = []
+    for launch in launches:
+        if launch[0] == "global":
+            _, k, j_lo, r = launch
+            out += [(k, j) for j in range(j_lo + r - 1, j_lo - 1, -1)]
+        else:
+            out += [p for _, ps in launch[3] for p in ps]
+    return out
+
+
+def encode(launches) -> list[int]:
+    """The plan as the ints ``tpubz_bitonic_run_*`` reads: per global launch
+    [0, k, j_lo, r]; per tile launch [1, t, R, groups, passes], then per
+    group its R register bits, 1 if they are 0..R-1, and one past its last
+    pass, then per pass the register position of j, k, and the register
+    position of k or 255."""
+    words = []
+    for launch in launches:
+        if launch[0] == "global":
+            words += [0, *launch[1:]]
+            continue
+        _, t, R, groups = launch
+        words += [1, t, R, len(groups), sum(len(ps) for _, ps in groups)]
+        end = 0
+        for bits, ps in groups:
+            end += len(ps)
+            words += [*bits, int(bits == tuple(range(R))), end]
+        for bits, ps in groups:
+            for k, j in ps:
+                words += [bits.index(j), k, bits.index(k) if k in bits else 255]
+    return words
+
+
+@functools.lru_cache(maxsize=64)
+def _sort_plan(log2n: int, tile_log2: int, regs_log2: int, fuse: int):
+    words = encode(plan(network(log2n), log2n, tile_log2, regs_log2, fuse))
+    return (ctypes.c_int * len(words))(*words), len(words)
+
+
 def _check(keys, payload=None):
     if keys.dtype not in KEY_DTYPES:
         raise TypeError(f"keys must be int32 or int64, got {keys.dtype}")
@@ -128,24 +274,27 @@ def _check(keys, payload=None):
             raise ValueError("keys and payload must share one device")
     dev = keys.device
     if dev.type == "cuda":
-        if not keys.is_contiguous() or (payload is not None and not payload.is_contiguous()):
-            raise ValueError("the CUDA kernel takes contiguous tensors")
+        for t in (keys, payload):
+            if t is not None and (not t.is_contiguous() or t.data_ptr() % 16):
+                raise ValueError("the CUDA kernel takes contiguous, 16-byte aligned tensors")
     elif dev.type != "cpu":
         raise ValueError(f"bitonic: unsupported device {dev}")
     return log2n
 
 
-def _launch(name, entry, keys, *args):
-    """Call a library entry point on keys' device and current stream,
-    with the kernel-launch counter as its out argument."""
+def _launch(name, keys, payload, words):
+    """Run an encoded plan through the library on keys' device and current
+    stream, with the kernel-launch counter as its out argument."""
     global LAUNCHES, PASS_LAUNCHES
-    fn = getattr(_build.load(), entry)
+    fn = getattr(_build.load(), f"tpubz_bitonic_run_{KEY_DTYPES[keys.dtype]}")
+    arr, count = words
     launched = ctypes.c_int(0)
     with torch.cuda.device(keys.device):
         stream = torch.cuda.current_stream(keys.device).cuda_stream
-        rc = fn(keys.data_ptr(), *args, ctypes.byref(launched), stream)
+        rc = fn(keys.data_ptr(), None if payload is None else payload.data_ptr(),
+                keys.shape[0], arr, count, ctypes.byref(launched), stream)
     if rc != 0:
-        raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")
+        raise RuntimeError(f"tpubz_bitonic_run launch failed: CUDA error {rc}")
     with _launch_lock:
         LAUNCHES += 1
         CALLS[name] += 1
@@ -154,24 +303,22 @@ def _launch(name, entry, keys, *args):
 
 def bitonic_1op(keys: torch.Tensor) -> torch.Tensor:
     """The keys in ascending order, as a new tensor."""
-    _check(keys)
+    log2n = _check(keys)
     if keys.device.type == "cpu":
         return bitonic_1op_ref(keys)
     out = keys.clone()
-    _launch("bitonic_1op", f"tpubz_bitonic_sort_{KEY_DTYPES[keys.dtype]}",
-            out, None, out.shape[0])
+    _launch("bitonic_1op", out, None, _sort_plan(log2n, TILE_LOG2, REGS_LOG2, FUSE))
     return out
 
 
 def bitonic_2op(keys: torch.Tensor, payload: torch.Tensor):
     """(keys in ascending order, payload moved with them), as new tensors.
     Equal keys keep the order the network leaves them in."""
-    _check(keys, payload)
+    log2n = _check(keys, payload)
     if keys.device.type == "cpu":
         return bitonic_2op_ref(keys, payload)
     out, pout = keys.clone(), payload.clone()
-    _launch("bitonic_2op", f"tpubz_bitonic_sort_{KEY_DTYPES[keys.dtype]}",
-            out, pout.data_ptr(), out.shape[0])
+    _launch("bitonic_2op", out, pout, _sort_plan(log2n, TILE_LOG2, REGS_LOG2, FUSE))
     return out, pout
 
 
@@ -184,7 +331,7 @@ def stage_passes(keys: torch.Tensor, js) -> torch.Tensor:
         raise ValueError(f"pass distances must be 2^j with 0 <= j < {log2n}, got {js}")
     if keys.device.type == "cpu":
         return stage_passes_ref(keys, js)
-    arr = (ctypes.c_int * max(len(js), 1))(*js)
-    _launch("stage_passes", f"tpubz_bitonic_stage_{KEY_DTYPES[keys.dtype]}",
-            keys, keys.shape[0], arr, len(js))
+    if js:
+        words = encode(plan([(log2n, j) for j in js], log2n))
+        _launch("stage_passes", keys, None, ((ctypes.c_int * len(words))(*words), len(words)))
     return keys

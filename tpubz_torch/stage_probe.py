@@ -20,7 +20,7 @@ mixed corpus plus the edge blocks (``tpubz_torch.corpus``, as
   idle share, the kernels with the most device time, and the device ms and
   launches of each bitonic kernel (the BWT's sorts);
 - ``window``: device-only full-stage stream MB/s for each ordered-drain
-  window, and of tpubz's native host engine (``compress_cpu``), in turns;
+  window, and of the native host engine (``compress_cpu``), in turns;
 - ``routes``: stream MB/s of the device-only ``full`` and ``bwt`` stages,
   the default hybrid and ``compress_cpu``, in turns, with each stream's
   ``last_stream_stats``;
@@ -45,17 +45,16 @@ import time
 import numpy as np
 import torch
 
-from tpubz import native
-from tpubz.format.constants import block_budget
-from tpubz.format.crc import block_crc
-from tpubz.hostref.rle1 import rle1_blocks
-
 from .block.encode import DeviceBlockEncoder
 from .corpus import edge_blocks, mixed_corpus
+from .format.constants import block_budget
+from .format.crc import block_crc
+from .hostref.rle1 import rle1_blocks
 from .kernels.mtf import mtf_parts
 from .kernels.mtf_dominance import ranks_from_parts
 from .kernels.rle2 import rle2_encode
 from .kernels.suffix_sort import bwt_forward
+from .native import mtf_rle2_native
 from .stream import api
 
 WINDOWS = (2, 5, 28)
@@ -148,7 +147,7 @@ def bwt_stage_times(data: bytes, level: int, device) -> dict:
         fetched, row["fetch_bwt"] = _timed(lambda: enc.fetch_bwt((key, last, n)), device)
         row["dispatcher_total"] = sum(row.values())
         t0 = time.perf_counter()
-        rle2, freqs, used = native.mtf_rle2_native(fetched[1])
+        rle2, freqs, used = mtf_rle2_native(fetched[1])
         t1 = time.perf_counter()
         enc.emit_block(fetched[0], rle2, rle2.size, freqs, used, crc)
         t2 = time.perf_counter()
@@ -200,7 +199,7 @@ def profile_stream(data: bytes, level: int, device, stage: str = "full") -> dict
 
 def window_sweep(data: bytes, level: int, device, reps: int = 3) -> dict:
     """Device-only full-stage stream MB/s per ordered-drain window, and of
-    tpubz's native host engine on the same machine's cores, in turns."""
+    the native host engine on the same machine's cores, in turns."""
     rates: dict = {w: [] for w in WINDOWS}
     host = []
     saved = api.WINDOW

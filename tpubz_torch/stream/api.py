@@ -1,8 +1,8 @@
 """Whole-stream compression: the hybrid scheduler of tpubz on a torch device.
 
-The counterpart of ``tpubz/stream/api.py``, step for step. The stream
-assembly is tpubz's: the RLE1 scan cuts blocks (the background ``Rle1Feed``
-for large inputs), the header goes first, and an ordered drain splices each
+The counterpart of ``tpubz/stream/api.py``, step for step, on the port's
+own host engine. The RLE1 scan cuts blocks (the background ``Rle1Feed`` for
+large inputs), the header goes first, and an ordered drain splices each
 block's bits and folds the stream CRC. Output bytes equal
 ``tpubz.stream.api.compress_cpu`` and C bzip2's on every route.
 
@@ -19,7 +19,7 @@ Routing, as in tpubz:
     the ordered drain: the bytes are the same);
   - the device runs one of two stages: ``"full"`` (BWT, MTF, RLE2 on the
     device; refinement and emission on the host) or ``"bwt"`` (the suffix
-    sort on the device; MTF/RLE2 in ``tpubz.native.mtf_rle2_native`` on the
+    sort on the device; MTF/RLE2 in the native ``mtf_rle2_native`` on the
     fetched last column). ``"auto"`` picks by ``rigprofile.choose_stage``
     from the port's own measured profile, ``"bwt"`` until both stages have
     been measured; every device stream trains the profile at its end.
@@ -42,11 +42,12 @@ Deliberate differences from tpubz:
     the stream ends it joins its device blocks and re-raises the first
     device exception (tpubz's ``test_device_fast_error_healed_by_cpu_twin``
     is the behaviour this drops).
-  - The bwt stage needs only the native library (no AOT stamp exists here).
+  - The bwt stage needs no AOT stamp: nothing is compiled ahead here.
 
 Environment overrides, the names tpubz reads, all read in ``_settings``:
 TPUBZ_DEVICE_STAGE, TPUBZ_HYBRID_CPU, TPUBZ_MIN_DEVICE_BLOCKS, TPUBZ_WINDOW,
-TPUBZ_EMIT_THREADS, TPUBZ_FETCH_THREADS; TPUBZ_PROFILE=<dir> wraps
+TPUBZ_EMIT_THREADS, TPUBZ_FETCH_THREADS (TPUBZ_HOST_THREADS, the CPU
+engine's pool, is read where that pool starts); TPUBZ_PROFILE=<dir> wraps
 ``compress`` in a ``torch.profiler`` trace written to that directory.
 """
 from __future__ import annotations
@@ -64,15 +65,13 @@ from concurrent.futures import wait as _fut_wait
 import numpy as np
 import torch
 
-from tpubz import native
-from tpubz.format.constants import FOOTER_MAGIC, STREAM_MAGIC, block_budget
-from tpubz.format.crc import block_crc, stream_crc_fold
-from tpubz.hostref.bitio import BitAccum, IncrementalSplicer
-from tpubz.hostref.rle1 import Rle1Feed, rle1_blocks
-from tpubz.stream import api as _tapi
-from tpubz.stream.api import _FeedItems, _HostFallbackEncoder, _items_total
-
+from ..block.emit import emit_block
 from ..block.encode import DeviceBlockEncoder, resolve_device
+from ..format.constants import FOOTER_MAGIC, STREAM_MAGIC, block_budget
+from ..format.crc import block_crc, stream_crc_fold
+from ..hostref.bitio import BitAccum, IncrementalSplicer
+from ..hostref.rle1 import Rle1Feed, rle1_blocks
+from ..native import block_transform_native, mtf_rle2_native
 from . import rigprofile
 
 log = logging.getLogger("tpubz_torch")
@@ -115,6 +114,42 @@ _encoders: dict = {}
 _encoders_lock = threading.Lock()
 
 
+class CpuBlockEncoder:
+    """The native CPU engine: BWT, MTF and RLE2 of a block in one GIL-free
+    native call, then the same native emission a device block takes, so
+    its bytes equal the device path's."""
+
+    def __init__(self, level: int):
+        self.level = level
+
+    def encode_block(self, rle1_block, crc) -> BitAccum:
+        key, rle2, freqs, used = block_transform_native(rle1_block)
+        return emit_block(key, rle2, rle2.size, freqs, used, crc)
+
+
+def _items_total(items) -> int:
+    """The block count of an item stream: exact for a list, the producer's
+    estimate for a streaming source (exact once its scan ends)."""
+    est = getattr(items, "total_estimate", None)
+    return est() if est is not None else len(items)
+
+
+class _FeedItems:
+    """(RLE1 block, raw input range) items over an ``Rle1Feed``; the raw
+    range is what the block's CRC covers."""
+
+    def __init__(self, feed: Rle1Feed, arr: np.ndarray):
+        self.feed = feed
+        self._arr = arr
+
+    def __iter__(self):
+        for o0, o1, i0, i1 in self.feed:
+            yield self.feed.out[o0:o1], self._arr[i0:i1]
+
+    def total_estimate(self) -> int:
+        return self.feed.total_estimate()
+
+
 def _settings() -> dict:
     """The environment overrides tpubz reads, read at the start of a stream."""
     env = os.environ
@@ -138,7 +173,7 @@ def _encoder_for(level: int, n_blocks: int, dev: torch.device, min_device_blocks
         enc = _encoders.get(key)
         if enc is None:
             if n_blocks < min_device_blocks:
-                return _HostFallbackEncoder(level)
+                return CpuBlockEncoder(level)
             enc = _encoders[key] = DeviceBlockEncoder(level, dev)
     return enc
 
@@ -168,7 +203,7 @@ def compress(data, level: int = 9, *, device="cuda") -> bytes:
 
 
 def compress_cpu(data, level: int = 9) -> bytes:
-    """bzip2-compress ``data`` on tpubz's native CPU engine alone (a worker
+    """bzip2-compress ``data`` on the native CPU engine alone (a worker
     pool; no device). Output bytes equal ``compress``'s."""
     return _compress_impl(data, level, None)
 
@@ -224,10 +259,46 @@ def block_results(level: int, items, dev, n_blocks: int | None = None):
 
 
 def _host_results(level: int, items):
-    """tpubz's CPU engine pipeline, with its stats copied into the port's."""
-    yield from _tapi._host_block_results(_HostFallbackEncoder(level), items)
+    """The CPU engine's pipeline: each block encoded on a thread pool (the
+    native calls release the GIL), yielded in block order with at most two
+    blocks per worker in flight. TPUBZ_HOST_THREADS sets the pool, by
+    default 3x the cores and at most 24: the native transform is bound by
+    memory latency, so more threads than cores hide its stalls."""
+    enc = CpuBlockEncoder(level)
+    workers = max(1, min(int(os.environ.get("TPUBZ_HOST_THREADS",
+                                            str(3 * (os.cpu_count() or 4)))), 24))
+
+    def one(idx, blk, raw):
+        t0 = time.time()
+        crc = block_crc(raw)
+        data, nbits = enc.encode_block(blk, crc).pack()
+        last_stream_events.append(("cpu", idx, t0, time.time()))
+        return crc, data, nbits
+
+    n_est = _items_total(items)
     last_stream_stats.clear()
-    last_stream_stats.update(_tapi.last_stream_stats)
+    last_stream_stats.update(engine="cpu", blocks=n_est, dev_blocks=0, cpu_blocks=n_est)
+    n_done = 0
+    if workers == 1 or n_est <= 1:
+        for idx, (blk, raw) in enumerate(items):
+            n_done += 1
+            yield one(idx, blk, raw)
+    else:
+        pool = ThreadPoolExecutor(workers)
+        inflight: deque = deque()
+        try:
+            for idx, (blk, raw) in enumerate(items):
+                inflight.append(pool.submit(one, idx, blk, raw))
+                if len(inflight) >= 2 * workers:
+                    n_done += 1
+                    yield inflight.popleft().result()
+            while inflight:
+                n_done += 1
+                yield inflight.popleft().result()
+        finally:
+            pool.shutdown(wait=True, cancel_futures=True)
+    # the count replaces a streaming feed's estimate
+    last_stream_stats.update(blocks=n_done, cpu_blocks=n_done)
 
 
 def _device_block_results(enc: DeviceBlockEncoder, items, settings: dict):
@@ -242,10 +313,10 @@ def _device_block_results(enc: DeviceBlockEncoder, items, settings: dict):
         knee = float(prof.get("cpu_knee", CPU_KNEE))
         hybrid_n = min(int(knee * cores), MAX_CPU_WORKERS)
     cpu_pool = cpu_slots = None
-    if hybrid_n > 0 and native.get_lib() is not None:
+    if hybrid_n > 0:
         cpu_pool = ThreadPoolExecutor(hybrid_n)
         cpu_slots = threading.Semaphore(hybrid_n)
-    host_enc = _HostFallbackEncoder(enc.level)
+    host_enc = CpuBlockEncoder(enc.level)
     # a hybrid needs the device to be a separate compute resource: on the
     # host's own CPU every device block takes the cores the native engine
     # would use, so the pool takes every block unless the user asked for a
@@ -295,8 +366,6 @@ def _device_block_results(enc: DeviceBlockEncoder, items, settings: dict):
         stage = rigprofile.choose_stage(
             prof, hybrid_n if cpu_pool is not None else 0, eff_cores
         ) or "bwt"
-    if stage == "bwt" and native.get_lib() is None:
-        stage = "full"  # the host half of the bwt stage is native code
     if stage not in ("bwt", "full"):
         raise ValueError(f"TPUBZ_DEVICE_STAGE must be auto, bwt or full, not {stage!r}")
 
@@ -314,7 +383,7 @@ def _device_block_results(enc: DeviceBlockEncoder, items, settings: dict):
         t0 = time.time()
         if stage == "bwt":
             key, last = fetched
-            rle2, freqs, used = native.mtf_rle2_native(last)
+            rle2, freqs, used = mtf_rle2_native(last)
             blk = enc.emit_block(key, rle2, rle2.size, freqs, used, crc)
         else:
             blk = enc.emit_block(*fetched, crc)

@@ -2,9 +2,10 @@
 
 The counterpart of ``tpubz/stream/rigprofile.py``: the stream scheduler
 trains it at the end of every device stream and reads it at the start of
-the next. The fields and their EMA folding are tpubz's (``cpu_block_s``,
-and per stage ``dev_cadence_s`` and ``host_leg_s``); so is the model that
-picks a stage from them, ``choose_stage``, imported unchanged.
+the next. Its fields are ``cpu_block_s`` (one native CPU block), and per
+stage ``dev_cadence_s`` (the device's pipelined cadence per block) and
+``host_leg_s`` (the host work a device block still costs), each folded in
+as an EMA; ``choose_stage`` picks a stage from them.
 
 The file describes this host and its card, so it lives apart from tpubz's
 TPU-rig profile: ``$TPUBZ_TORCH_CACHE/tpubz_torch_rig_profile.json``, the
@@ -19,7 +20,7 @@ import os
 import threading
 import time
 
-from tpubz.stream.rigprofile import _EMA, choose_stage  # noqa: F401 (re-exported)
+_EMA = 0.3  # update weight: recent streams dominate, one outlier does not
 
 _LOCK = threading.Lock()
 _CACHE: dict | None = None
@@ -88,3 +89,36 @@ def reset_memo() -> None:
     global _CACHE
     with _LOCK:
         _CACHE = None
+
+
+def choose_stage(profile: dict, workers: int, eff_cores: int) -> str | None:
+    """The device stage ("bwt" or "full") the measurements favour, or None
+    until both stages have a cadence and a host leg.
+
+    A route sustains rate_r = min(1/c_r, C/h_r) blocks/s, with c_r its
+    device cadence, h_r the host seconds it still costs per device block
+    and C the usable cores: a busy host caps the route at C/h_r however
+    fast the card is. With a CPU pool, the cores left over run whole CPU
+    blocks of H seconds each:
+
+        total_r = rate_r + max(0, C - h_r * rate_r) / H     [blocks/s]
+
+    A fast host favours "bwt" (a short host leg, a faster device stage); a
+    busy host favours "full", which moves MTF and RLE2 onto the card.
+    """
+    cad = profile.get("dev_cadence_s", {})
+    leg = profile.get("host_leg_s", {})
+    H = profile.get("cpu_block_s")
+    routes = [s for s in ("bwt", "full") if cad.get(s) and leg.get(s) is not None]
+    if len(routes) < 2:
+        return None
+    C = max(1, eff_cores)
+
+    def score(s: str) -> float:
+        c, h = float(cad[s]), float(leg.get(s) or 0.0)
+        rate = min(1.0 / c, C / h) if h > 0 else 1.0 / c
+        if workers > 0 and H:
+            return rate + max(0.0, C - h * rate) / float(H)
+        return rate
+
+    return max(routes, key=score)
