@@ -7,7 +7,9 @@ Run from the repository root on a machine with a CUDA card, nvcc and g++.
 It builds the port's native host engine (tpubz_torch/native, g++) and the
 CUDA kernels (tpubz_torch/csrc, nvcc) into tpubz_torch/_build, holds each
 kernel against its plain
-PyTorch version at the level-9 shapes (tolerance 0: the codec is integer),
+PyTorch version at the level-9 shapes (tolerance 0: the codec is integer;
+MTF and RLE2 on the corpus's first block and the three edge blocks, RLE2
+also on random ranks with long zero runs),
 checks the BWT on the card against the port's plain path on the CPU for
 real and edge blocks, and a short level-9 stream byte for byte, then drives
 level-9 multi-block encode through
@@ -27,9 +29,12 @@ The line before the last is {"kernels": [...]}: per kernel its launches in
 the main-path run, its largest difference from the plain version, its time,
 the plain version's and the one-call PyTorch equivalent's where one exists
 (torch.sort for the sorts), all from CUDA events, and its bound: the larger
-of the bytes it must move over 3.35 TB/s and its comparisons over the 67
-TOP/s of the card's CUDA cores. The bitonic sorts' launches are calls of
-their wrappers; stage_passes' are the launches of the two pass kernels
+of the bytes it must move over 3.35 TB/s and its integer operations over
+the int32 rate of the card's CUDA cores (132 SMs x 64 lanes x 1.98 GHz,
+16.7 T/s; the data sheet's 67 TFLOP/s is the float32 rate: twice the
+lanes, and an FMA counted as two). The MTF and RLE2 launches are calls of their wrappers (three
+kernels each); the bitonic sorts' launches are calls of their wrappers;
+stage_passes' are the launches of the two pass kernels
 (bitonic_global, bitonic_tile) that it shares with the sorts, counted where
 the sorts launch them. The port imports neither tpubz nor jax, and the run
 checks that neither was loaded. The last line is
@@ -51,10 +56,11 @@ LEVEL = 9
 CORPUS_MIB = 16
 SEED = 2026
 SHORT_MIB = 3  # corpus prefix of the stream checked against the CPU path
-# the card's peaks (H100 SXM data sheet, at 700 W): HBM bytes/s, and the
-# CUDA cores' rate (the float32 row; integer comparisons issue there too)
+# the card's peaks (H100 SXM, at 700 W): HBM bytes/s (data sheet), and the
+# CUDA cores' int32 rate: 132 SMs x 64 integer lanes x 1.98 GHz (the 67
+# TFLOP/s float32 rate has twice the lanes and counts an FMA as two)
 HBM_BYTES_PER_S = 3.35e12
-CORE_OPS_PER_S = 67e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
 
 
 def _say(phase, msg):
@@ -62,17 +68,17 @@ def _say(phase, msg):
 
 
 def _zero_counts():
-    from tpubz_torch.kernels import bitonic, mtf_dominance
+    from tpubz_torch.kernels import bitonic, mtf, rle2
 
-    mtf_dominance.LAUNCHES = 0
+    mtf.LAUNCHES = rle2.LAUNCHES = 0
     bitonic.LAUNCHES = bitonic.PASS_LAUNCHES = 0
     bitonic.CALLS.update(dict.fromkeys(bitonic.CALLS, 0))
 
 
 def _bound(nbytes, ops):
     """(ms, "bytes" or "operations"): the least time for nbytes moved once
-    and ops comparisons, whichever is larger."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / CORE_OPS_PER_S * 1e3
+    and ops int32 operations, whichever is larger."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -124,8 +130,7 @@ def _smoke(tmp):
     from tpubz_torch.block.encode import block_n
     from tpubz_torch.corpus import edge_blocks, mixed_corpus
     from tpubz_torch import native
-    from tpubz_torch.kernels import _build, bitonic, mtf_dominance, suffix_sort
-    from tpubz_torch.kernels.mtf import mtf_parts
+    from tpubz_torch.kernels import _build, bitonic, mtf, rle2, suffix_sort
     from tpubz_torch.kernels.suffix_sort import bwt_forward
     from tpubz_torch.stage_probe import DEVICE_ONLY, env
 
@@ -152,46 +157,12 @@ def _smoke(tmp):
             f"corpus_sha256={hashlib.sha256(corpus).hexdigest()} with_edges_bytes={len(data)} "
             f"with_edges_sha256={hashlib.sha256(data).hexdigest()}")
 
-    # the kernel against its plain version at the level-9 shape, exactly:
-    # seeded random parts, and the real parts of the corpus's first block
     N = block_n(LEVEL)
-    nc = N // mtf_dominance.CHUNK
-    rng = np.random.default_rng(SEED)
-    rand = [
-        torch.from_numpy(a.astype(np.int32)).to(dev) for a in (
-            rng.integers(-1, 256, (nc, 256)),
-            rng.integers(0, 257, (nc, 256)),
-            rng.integers(0, 2 * N + 256, (nc, 256)),
-            rng.integers(0, 2 * N + 256, (nc, 256)),
-        )
-    ]
     n0 = LEVEL * 100_000
     padded = torch.zeros(N, dtype=torch.uint8, device=dev)
     padded[:n0] = torch.frombuffer(bytearray(corpus[:n0]), dtype=torch.uint8).to(dev)
-    _, last0 = bwt_forward(padded, n0)
-    real_parts = list(mtf_parts(last0, n0)[:4])
-    max_err = 0
-    for name, parts in (("random", rand), ("corpus_block0", real_parts)):
-        got = mtf_dominance.ranks_from_parts(*parts)
-        ref = mtf_dominance.ranks_from_parts_ref(*parts)
-        torch.cuda.synchronize()
-        mismatches = int((got != ref).sum())
-        err = int((got - ref).abs().max())
-        max_err = max(max_err, err)
-        _say("kernel", f"mtf_dominance vs plain inputs={name} nc={nc} mismatches={mismatches} "
-                f"max_abs_err={err} tolerance=0")
-        if mismatches:
-            raise AssertionError(f"mtf_dominance disagrees with its plain version on {name}")
-    kernel_ms = _cuda_ms(lambda: mtf_dominance.ranks_from_parts(*real_parts), 50)
-    plain_ms = _cuda_ms(lambda: mtf_dominance.ranks_from_parts_ref(*real_parts), 5)
-    # four int32 (nc, 256) inputs read and one written; per chunk, two
-    # comparisons for each of its 256*255/2 pairs (j < i; either case's)
-    # and 256*256 for the chunk-start ranks
-    C = mtf_dominance.CHUNK
-    mtf_bound = _bound(5 * nc * C * 4, nc * (C * (C - 1) + C * 256))
-    _say("kernel", f"mtf_dominance nc={nc} kernel_ms={kernel_ms} plain_ms={plain_ms} "
-            f"bound_us={mtf_bound[0] * 1e3} bound_by={mtf_bound[1]} "
-            f"(CUDA events, inputs=corpus_block0)")
+    rng = np.random.default_rng(SEED)
+    chain = chain_kernels(padded, n0, edges, rng)
 
     # the bitonic kernels against their plain versions at 2^20, exactly:
     # int32 keys in [0, 50), whose duplicates move payloads by the tie rule;
@@ -317,7 +288,7 @@ def _smoke(tmp):
         stream = tpubz_torch.compress(data, LEVEL, device="cuda")
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = mtf_dominance.LAUNCHES
+    launches = {"mtf": mtf.LAUNCHES, "rle2": rle2.LAUNCHES}
     sort_launches, sort_calls = bitonic.LAUNCHES, dict(bitonic.CALLS)
     pass_launches = bitonic.PASS_LAUNCHES
     blocks = tpubz_torch.stream.api.last_stream_stats["blocks"]
@@ -328,16 +299,18 @@ def _smoke(tmp):
             f"round_trips={'+'.join(ran)}")
 
     # the main path went through the kernels, without jax: every block ran
-    # at least one doubling round (2op) and its last-column sort (1op)
-    if launches < blocks:
-        raise AssertionError(f"{launches} kernel launches for {blocks} blocks")
+    # its MTF and RLE2, at least one doubling round (2op) and its
+    # last-column sort (1op)
+    if min(launches.values()) < blocks:
+        raise AssertionError(f"MTF and RLE2 launches {launches} for {blocks} blocks")
     if sort_launches < 2 * blocks or min(sort_calls["bitonic_1op"], sort_calls["bitonic_2op"]) < blocks:
         raise AssertionError(f"bitonic calls {sort_calls} for {blocks} blocks")
     if pass_launches < sort_launches:
         raise AssertionError(f"{pass_launches} pass-kernel launches for {sort_launches} sorts")
     _no_reference_modules()
     mb = len(data) / 1e6
-    _say("path", f"blocks={blocks} mtf_dominance_launches={launches} "
+    _say("path", f"blocks={blocks} mtf_launches={launches['mtf']} "
+            f"rle2_launches={launches['rle2']} "
             f"bitonic_launches={sort_launches} bitonic_calls={sort_calls} "
             f"pass_kernel_launches={pass_launches} MB={mb} seconds={dt} "
             f"MBps={mb / dt} tpubz_imported=False jax_imported=False")
@@ -354,19 +327,21 @@ def _smoke(tmp):
          sort_ms["bitonic_2op"]),
         ("stage_passes", "tools/probe_pallas_pass.py:83", pass_launches, stage_ms["row2"]),
     ]
-    print(json.dumps({"kernels": [{
-        "name": "mtf_dominance",
+    rows = {name: {
+        "name": name,
         "route": "cuda",
-        "source": "tpubz_torch/csrc/mtf_dominance.cu",
-        "replaces": "tpubz/kernels/mtf_pallas.py:46",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": mtf_bound[0],
-        "bound_by": mtf_bound[1],
+        "source": f"tpubz_torch/csrc/{name}.cu",
+        "replaces": replaces,
+        "launches": launches[name],
+        "max_abs_err": chain[name]["max_abs_err"],
+        "ms": chain[name]["ms"],
+        "plain_ms": chain[name]["plain_ms"],
+        "bound_ms": chain[name]["bound"][0],
+        "bound_by": chain[name]["bound"][1],
         "library_ms": None,
-    }] + [{
+    } for name, replaces in (("mtf", "tpubz/kernels/mtf_pallas.py:46"),
+                             ("rle2", "tpubz/kernels/rle2.py:34"))}
+    print(json.dumps({"kernels": [rows["mtf"]] + [{
         "name": name,
         "route": "cuda",
         "source": "tpubz_torch/csrc/bitonic.cu",
@@ -378,17 +353,93 @@ def _smoke(tmp):
         "bound_ms": times[3][0],
         "bound_by": times[3][1],
         "library_ms": times[2],
-    } for name, replaces, n, times in sorts]}), flush=True)
+    } for name, replaces, n, times in sorts] + [rows["rle2"]]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
     return 0
 
 
+def chain_kernels(padded, n0, edges, rng):
+    """The MTF and RLE2 kernels against their plain versions on the card,
+    exactly (every lane, the used map, every symbol slot, the length and the
+    frequencies; the EOB a device scalar): on the BWT of the corpus's first
+    block and of each edge block, and RLE2 also on random ranks with zero
+    runs up to 70,000 long. Then their ms and the plain versions' on the
+    corpus block, and the bounds. Returns per kernel max_abs_err, ms,
+    plain_ms and bound."""
+    from tpubz_torch.kernels import mtf, rle2
+    from tpubz_torch.kernels.suffix_sort import bwt_forward
+
+    dev, N = padded.device, padded.shape[0]
+    blocks = {"corpus_block0": bwt_forward(padded, n0)[1]}
+    for name, blk in edges.items():
+        data = torch.zeros(N, dtype=torch.uint8, device=dev)
+        data[: len(blk)] = torch.frombuffer(bytearray(blk), dtype=torch.uint8).to(dev)
+        blocks[name] = bwt_forward(data, len(blk))[1]
+    lengths = {"corpus_block0": n0, **{k: len(v) for k, v in edges.items()}}
+    err = {"mtf": 0, "rle2": 0}
+
+    def held(kernel, inputs, got, ref):
+        torch.cuda.synchronize()
+        mismatches = sum(int((g != r).sum()) for g, r in zip(got, ref))
+        e = max(int((g.long() - r.long()).abs().max()) for g, r in zip(got, ref))
+        err[kernel] = max(err[kernel], e)
+        _say("kernel", f"{kernel} vs plain inputs={inputs} N={N} mismatches={mismatches} "
+                f"max_abs_err={e} tolerance=0")
+        if mismatches:
+            raise AssertionError(f"{kernel} disagrees with its plain version on {inputs}")
+
+    ranks = {}
+    for name, last in blocks.items():
+        n = lengths[name]
+        got = mtf.mtf_ranks(last, n)
+        held("mtf", name, got, mtf.mtf_ranks_ref(last, n))
+        ranks[name] = (got[0], n, got[1].sum() + 1)
+    runs = np.zeros(N, np.int32)
+    at = int(rng.integers(0, 100))
+    while at < N:
+        runs[at] = rng.integers(1, 256)
+        at += 1 + int(rng.choice([0, 1, 3, 30, 700, 5000, 70_000]))
+    ranks["random_zero_runs"] = (torch.from_numpy(runs).to(dev), N - 1000,
+                                 torch.tensor(201, device=dev))
+    for name, (r, n, eob) in ranks.items():
+        held("rle2", name, rle2.rle2_encode(r, n, eob), rle2.rle2_encode_ref(r, n, eob))
+
+    last, (r, n, eob) = blocks["corpus_block0"], ranks["corpus_block0"]
+    nc = N // mtf.CHUNK
+    out = {
+        # bytes in, ranks and the used map out; no operation count is
+        # needed beyond one per position
+        "mtf": (lambda: mtf.mtf_ranks(last, n0), lambda: mtf.mtf_ranks_ref(last, n0),
+                _bound(N + 4 * N + 256, N)),
+        # ranks in, symbols, length and frequencies out
+        "rle2": (lambda: rle2.rle2_encode(r, n, eob), lambda: rle2.rle2_encode_ref(r, n, eob),
+                 _bound(4 * N + 4 * (N + 8) + 8 + 8 * 258, N)),
+    }
+    result = {}
+    for name, (run, plain, bound) in out.items():
+        module = mtf if name == "mtf" else rle2
+        before = module.LAUNCHES
+        run()
+        torch.cuda.synchronize()
+        calls = module.LAUNCHES - before
+        ms, plain_ms = _cuda_ms(run, 50), _cuda_ms(plain, 5)
+        result[name] = {"max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms, "bound": bound}
+        # the TPU formulation's dominance compares (two for each of 256*255/2
+        # pairs and 256*256 for srank, per chunk) at the int32 rate, beside
+        extra = (f"tpu_formulation_compares_int32_us="
+                 f"{nc * (256 * 255 + 256 * 256) / INT32_OPS_PER_S * 1e6} " if name == "mtf" else "")
+        _say("kernel", f"{name} N={N} n={n0} kernel_ms={ms} plain_ms={plain_ms} "
+                f"calls_per_block={calls} kernels_per_call=3 bound_us={bound[0] * 1e3} "
+                f"bound_by={bound[1]} {extra}(CUDA events, inputs=corpus_block0)")
+    return result
+
+
 def stage_bwt(tpubz_torch, data, stream):
     """The bwt stage, device-only, on the main path's data: the same bytes,
-    the bitonic sorts on every block and no MTF kernel (it lies off this
-    stage)."""
-    from tpubz_torch.kernels import bitonic, mtf_dominance
+    the bitonic sorts on every block and no MTF or RLE2 kernel (they lie
+    off this stage)."""
+    from tpubz_torch.kernels import bitonic, mtf, rle2
     from tpubz_torch.stage_probe import DEVICE_ONLY, env
 
     _zero_counts()
@@ -406,18 +457,18 @@ def stage_bwt(tpubz_torch, data, stream):
         raise AssertionError(f"not a device-only bwt stream: {st}")
     if sum(calls.values()) < 2 * st["blocks"] or calls["bitonic_1op"] < st["blocks"]:
         raise AssertionError(f"bitonic calls {calls} for {st['blocks']} blocks")
-    if mtf_dominance.LAUNCHES:
-        raise AssertionError(f"{mtf_dominance.LAUNCHES} mtf_dominance launches on the bwt stage")
+    if mtf.LAUNCHES or rle2.LAUNCHES:
+        raise AssertionError(f"{mtf.LAUNCHES} MTF and {rle2.LAUNCHES} RLE2 launches on the bwt stage")
     mb = len(data) / 1e6
     _say("stage_bwt", f"blocks={st['blocks']} stream==path_stream bitonic_calls={calls} "
          f"bitonic_launches={bitonic.LAUNCHES} pass_kernel_launches={bitonic.PASS_LAUNCHES} "
-         f"mtf_dominance_launches=0 MB={mb} seconds={dt} MBps={mb / dt}")
+         f"mtf_launches=0 rle2_launches=0 MB={mb} seconds={dt} MBps={mb / dt}")
 
 
 def hybrid(tpubz_torch, data, stream, tmp):
     """The default routing (hybrid CPU pool, stage from a fresh profile) on
     the main path's data, then compress_cpu on the same data."""
-    from tpubz_torch.kernels import bitonic, mtf_dominance
+    from tpubz_torch.kernels import bitonic, mtf, rle2
     from tpubz_torch.stage_probe import env
     from tpubz_torch.stream import rigprofile
 
@@ -445,7 +496,7 @@ def hybrid(tpubz_torch, data, stream, tmp):
     _say("hybrid", f"blocks={st['blocks']} stage={st['stage']} dev_blocks={st['dev_blocks']} "
          f"cpu_blocks={st['cpu_blocks']} cpu_workers={st['cpu_workers']} window={st['window']} "
          f"stream==path_stream bitonic_calls={dict(bitonic.CALLS)} "
-         f"mtf_dominance_launches={mtf_dominance.LAUNCHES} MB={mb} seconds={dt} "
+         f"mtf_launches={mtf.LAUNCHES} rle2_launches={rle2.LAUNCHES} MB={mb} seconds={dt} "
          f"MBps={mb / dt} compress_cpu_seconds={cpu_dt} compress_cpu_MBps={mb / cpu_dt} "
          f"cpu_count={os.cpu_count()}")
 

@@ -40,8 +40,8 @@ def test_build_compiles_every_source_for_sm90a_then_reuses(tmp_path, build_dir, 
     assert os.path.exists(_build.LIB_PATH)
     *compiles, link = log.read_text().splitlines()
     srcs = _build.sources()
-    assert any(s.endswith("mtf_dominance.cu") for s in srcs)
-    assert any(s.endswith("bitonic.cu") for s in srcs)
+    for name in ("mtf.cu", "rle2.cu", "bitonic.cu"):
+        assert any(s.endswith(name) for s in srcs)
     assert sorted(c.split()[c.split().index("-c") + 1] for c in compiles) == srcs
     assert all("arch=compute_90a,code=sm_90a" in c and "-shared" not in c for c in compiles)
     assert "-shared" in link and "-c" not in link.split()
@@ -97,8 +97,9 @@ def test_every_entry_point_passes_pointers_as_void_p():
     """ctypes would cut a pointer passed as a plain int to 32 bits."""
     import ctypes
 
-    argtypes = _build.SIGNATURES["tpubz_mtf_dominance"]
-    assert argtypes.count(ctypes.c_void_p) == 6 and argtypes[5] is ctypes.c_int
+    P, I = ctypes.c_void_p, ctypes.c_int
+    assert _build.SIGNATURES["tpubz_mtf_ranks"] == [P, I, I, I, P, P, P, P]
+    assert _build.SIGNATURES["tpubz_rle2"] == [P, I, I, P, P, I, P, P, P, P]
     ints = ctypes.POINTER(ctypes.c_int)
     for key in ("i32", "i64"):
         assert _build.SIGNATURES[f"tpubz_bitonic_run_{key}"] == [

@@ -20,8 +20,7 @@ from tpubz.stream.api import compress_cpu
 import tpubz_torch
 from tpubz_torch.block.encode import DeviceBlockEncoder
 from tpubz_torch.corpus import edge_blocks, mixed_corpus
-from tpubz_torch.kernels import mtf_dominance
-from tpubz_torch.kernels.mtf import mtf_parts
+from tpubz_torch.kernels import mtf, rle2
 from tpubz_torch.kernels.suffix_sort import bwt_forward
 
 pytestmark = pytest.mark.cuda
@@ -48,51 +47,88 @@ def port_profile(tmp_path, monkeypatch):
     rigprofile.reset_memo()
 
 
-def _random_parts(nc, seed, device):
-    rng = np.random.default_rng(seed)
-    arrs = (
-        rng.integers(-1, 256, (nc, 256)),
-        rng.integers(0, 257, (nc, 256)),
-        rng.integers(0, 2_000_000, (nc, 256)),
-        rng.integers(0, 2_000_000, (nc, 256)),
-    )
-    return [torch.from_numpy(a.astype(np.int32)).to(device) for a in arrs]
+def _level9_last(name, device):
+    """The BWT last column on the card of a level-9 block: the corpus's
+    first 900,000 bytes or one of corpus.edge_blocks()."""
+    blk = mixed_corpus(1, 2026)[:900_000] if name == "corpus_block0" else edge_blocks()[name]
+    data = torch.zeros(900_096, dtype=torch.uint8, device=device)
+    data[: len(blk)] = torch.frombuffer(bytearray(blk), dtype=torch.uint8).to(device)
+    return bwt_forward(data, len(blk))[1], len(blk)
 
 
-@pytest.mark.parametrize("nc", [1, 64, 3516])
-def test_kernel_matches_plain_random(cuda, nc):
-    """Seeded random parts, up to the level-9 shape (nc = 3516): the kernel
-    equals ranks_from_parts_ref on the card, exactly, and counts a launch."""
-    parts = _random_parts(nc, nc, cuda)
-    before = mtf_dominance.LAUNCHES
-    got = mtf_dominance.ranks_from_parts(*parts)
+LEVEL9_BLOCKS = ["corpus_block0", "near_periodic", "one_byte_run", "all256"]
+
+
+@pytest.mark.parametrize("name", LEVEL9_BLOCKS)
+def test_mtf_kernels_match_plain_level9(cuda, name):
+    """mtf_ranks on the card equals mtf_ranks_ref on the same last column at
+    level 9, every lane (pad lanes 0) and the used map, and counts one
+    library call."""
+    last, n = _level9_last(name, cuda)
+    before = mtf.LAUNCHES
+    ranks, used = mtf.mtf_ranks(last, n)
     torch.cuda.synchronize()
-    assert mtf_dominance.LAUNCHES == before + 1
-    assert torch.equal(got, mtf_dominance.ranks_from_parts_ref(*parts))
+    assert mtf.LAUNCHES == before + 1
+    rranks, rused = mtf.mtf_ranks_ref(last, n)
+    assert torch.equal(ranks, rranks) and torch.equal(used, rused)
+    if name == "all256":
+        assert int(ranks[:n].max()) == 255
 
 
-def test_kernel_matches_plain_real(cuda):
-    """The real MTF parts of a level-9 block of mixed bytes."""
-    rng = np.random.default_rng(5)
-    blk = np.concatenate((
-        rng.integers(0, 256, 300_000), rng.integers(0, 5, 300_000),
-        np.frombuffer(b"banana" * 50_000, np.uint8),
-    )).astype(np.uint8)
-    enc = DeviceBlockEncoder(9, cuda)
-    data = torch.zeros(enc.N, dtype=torch.uint8, device=cuda)
-    data[: blk.size] = torch.from_numpy(blk).to(cuda)
-    _, last = bwt_forward(data, blk.size)
-    lprev, lnext, keyi, keyrow, _ = mtf_parts(last, blk.size)
-    got = mtf_dominance.ranks_from_parts(lprev, lnext, keyi, keyrow)
-    assert torch.equal(got, mtf_dominance.ranks_from_parts_ref(lprev, lnext, keyi, keyrow))
+@pytest.mark.parametrize("name", LEVEL9_BLOCKS)
+def test_rle2_kernels_match_plain_level9(cuda, name):
+    """rle2_encode on the card equals rle2_encode_ref on the MTF ranks of a
+    level-9 block, with the EOB as a device scalar: every slot, the length
+    and the frequencies."""
+    last, n = _level9_last(name, cuda)
+    ranks, used = mtf.mtf_ranks(last, n)
+    eob = used.sum() + 1
+    before = rle2.LAUNCHES
+    got = rle2.rle2_encode(ranks, n, eob)
+    torch.cuda.synchronize()
+    assert rle2.LAUNCHES == before + 1
+    want = rle2.rle2_encode_ref(ranks, n, eob)
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda" and g.dtype == w.dtype and torch.equal(g, w)
 
 
-def test_wrapper_rejects_other_chunks(cuda):
-    parts = _random_parts(4, 0, cuda)
+def _zero_runs(size, seed):
+    rng = np.random.default_rng(seed)
+    ranks = np.zeros(size, np.int32)
+    at = 0
+    while at < size:
+        at += int(rng.choice([0, 1, 3, 30, 700, 5000, 70_000]))
+        if at < size:
+            ranks[at] = rng.integers(1, 256)
+            at += 1
+    return ranks
+
+
+@pytest.mark.parametrize("n", [0, 1, 4096, 899_999, 900_096])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_rle2_random_long_zero_runs(cuda, seed, n):
+    """Random ranks with zero runs up to many tiles long, nonzero pad lanes,
+    and the EOB as a host int and as a device tensor."""
+    ranks = torch.from_numpy(_zero_runs(900_096, seed)).to(cuda)
+    ranks[n:] = 7
+    for eob in (200 + seed, torch.tensor(200 + seed, device=cuda)):
+        got = rle2.rle2_encode(ranks, n, eob)
+        want = rle2.rle2_encode_ref(ranks, n, eob)
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    last = torch.zeros(1024, dtype=torch.uint8, device=cuda)
     with pytest.raises(ValueError):
-        mtf_dominance.ranks_from_parts(*(p[:, :128].contiguous() for p in parts[:3]), parts[3])
+        mtf.mtf_ranks(last, 10, chunk=128)
     with pytest.raises(ValueError):
-        mtf_dominance.ranks_from_parts(parts[0].t().contiguous().t(), *parts[1:])
+        mtf.mtf_ranks(last[::2], 10)
+    ranks = torch.zeros(1025, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        rle2.rle2_encode(ranks[1:], 10, 2)
+    with pytest.raises(TypeError):
+        rle2.rle2_encode(ranks.long(), 10, 2)
 
 
 def test_device_stream_matches_compress_cpu(cuda):
@@ -104,11 +140,11 @@ def test_device_stream_matches_compress_cpu(cuda):
         + b"ab" * 100_000 + b"c"
         + bytes(range(256)) * 400
     )
-    before = mtf_dominance.LAUNCHES
+    before = (mtf.LAUNCHES, rle2.LAUNCHES)
     got = tpubz_torch.compress(d, 1, device="cuda")
     blocks = tpubz_torch.stream.api.last_stream_stats["blocks"]
     assert blocks >= 4
-    assert mtf_dominance.LAUNCHES - before >= blocks
+    assert min(mtf.LAUNCHES - before[0], rle2.LAUNCHES - before[1]) >= blocks
     assert got == compress_cpu(d, 1)
     assert tpubz_torch.decompress(got) == d
 
@@ -138,13 +174,13 @@ def test_level9_blocks_match_native(cuda):
 
 def test_level9_stream_matches_compress_cpu(cuda):
     """The level-9 stream on the card equals compress_cpu byte for byte, and
-    every block launched the kernel."""
+    every block launched the MTF and RLE2 kernels."""
     d = _level9_data()
-    before = mtf_dominance.LAUNCHES
+    before = (mtf.LAUNCHES, rle2.LAUNCHES)
     got = tpubz_torch.compress(d, 9, device="cuda")
     blocks = tpubz_torch.stream.api.last_stream_stats["blocks"]
     assert blocks == 5
-    assert mtf_dominance.LAUNCHES - before >= blocks
+    assert min(mtf.LAUNCHES - before[0], rle2.LAUNCHES - before[1]) >= blocks
     assert got == compress_cpu(d, 9)
     assert tpubz_torch.decompress(got) == d
 
@@ -316,9 +352,9 @@ def test_level9_routes_match_compress_cpu(cuda, route, monkeypatch, tmp_path):
     calls = bitonic.CALLS["bitonic_1op"]
     if route == "bwt":
         monkeypatch.setenv("TPUBZ_DEVICE_STAGE", "bwt")
-        launches = mtf_dominance.LAUNCHES
+        launches = (mtf.LAUNCHES, rle2.LAUNCHES)
         got = tpubz_torch.compress(d, 9, device="cuda")
-        assert mtf_dominance.LAUNCHES == launches
+        assert (mtf.LAUNCHES, rle2.LAUNCHES) == launches
     elif route == "hybrid":
         monkeypatch.delenv("TPUBZ_DEVICE_STAGE")
         monkeypatch.delenv("TPUBZ_HYBRID_CPU")

@@ -17,7 +17,7 @@ from tpubz.hostref.mtf_rle2 import mtf_rle2_encode
 from tpubz.kernels import mtf as jmtf
 from tpubz.kernels import rle2 as jrle2
 from tpubz.kernels import suffix_sort as jsort
-from tpubz_torch.kernels import mtf_dominance
+from tpubz_torch.kernels import mtf as tmtf
 from tpubz_torch.kernels.mtf import mtf_parts, mtf_ranks
 from tpubz_torch.kernels.rle2 import num_digits, rle2_encode
 from tpubz_torch.kernels.suffix_sort import bwt_forward
@@ -115,7 +115,7 @@ def test_ranks_from_parts_ref_matches_pallas_random(seed):
     lnext = rng.integers(0, CHUNK + 1, (nc, CHUNK)).astype(np.int32)
     keyi = rng.integers(0, 600, (nc, CHUNK)).astype(np.int32)
     keyrow = rng.integers(0, 600, (nc, 256)).astype(np.int32)
-    got = mtf_dominance.ranks_from_parts_ref(
+    got = tmtf.ranks_from_parts_ref(
         *(torch.from_numpy(a) for a in (lprev, lnext, keyi, keyrow))
     )
     assert np.array_equal(got.numpy(), _tpubz_pallas_ranks(lprev, lnext, keyi, keyrow))
@@ -129,7 +129,7 @@ def test_ranks_from_parts_ref_matches_pallas_real(case):
     c = CASES[case]
     _, hlast = bwt_encode(np.frombuffer(c, np.uint8))
     lprev, lnext, keyi, keyrow, _ = mtf_parts(torch.from_numpy(_pad(bytes(hlast))), len(c), CHUNK)
-    got = mtf_dominance.ranks_from_parts(lprev, lnext, keyi, keyrow)
+    got = tmtf.ranks_from_parts_ref(lprev, lnext, keyi, keyrow)
     exp = _tpubz_pallas_ranks(*(t.numpy() for t in (lprev, lnext, keyi, keyrow)))
     assert np.array_equal(got.numpy(), exp)
 
@@ -179,24 +179,7 @@ def test_geometry_matches_tpubz():
     from tpubz.block import encode as jenc
     from tpubz_torch.block.encode import MTF_CHUNK, block_n
 
-    assert MTF_CHUNK == jenc.MTF_CHUNK == mtf_dominance.CHUNK
+    assert MTF_CHUNK == jenc.MTF_CHUNK == tmtf.CHUNK
     for level in range(1, 10):
         assert block_n(level) == jenc.DeviceBlockEncoder(level).N
     assert block_n(9) == 900_096
-
-
-def test_ranks_from_parts_checks_inputs():
-    """The wrapper rejects what the kernel does not take, and a CPU call
-    runs the plain version without counting a launch."""
-    z = torch.zeros((2, CHUNK), dtype=torch.int32)
-    row = torch.zeros((2, 256), dtype=torch.int32)
-    before = mtf_dominance.LAUNCHES
-    out = mtf_dominance.ranks_from_parts(z - 1, z, z, row)
-    assert out.shape == (2, CHUNK) and out.dtype == torch.int32
-    assert mtf_dominance.LAUNCHES == before
-    with pytest.raises(TypeError):
-        mtf_dominance.ranks_from_parts(z.long(), z, z, row)
-    with pytest.raises(ValueError):
-        mtf_dominance.ranks_from_parts(z, z[:1], z, row)
-    with pytest.raises(ValueError):
-        mtf_dominance.ranks_from_parts(z, z, z, row[:, :128])

@@ -216,7 +216,7 @@ def test_stage_probe_runs_at_level_1_on_cpu():
     st = stage_probe.stage_times(d, 1, "cpu")
     assert st["blocks_timed"] == 2
     med = st["median_ms"]
-    parts = ("upload", "bwt", "mtf_parts", "dominance_kernel", "rle2", "fetch")
+    parts = ("upload", "bwt", "mtf", "rle2", "fetch")
     assert all(med[k] >= 0 for k in parts) and med["native_emit"] > 0
     assert st["sum_ms"]["dispatcher_total"] == pytest.approx(
         sum(st["sum_ms"][k] for k in parts))

@@ -10,9 +10,9 @@ Public API, the surfaces of tpubz and of the stdlib ``bz2``:
 
 Layer map:
   kernels/  BWT on a hand-written CUDA bitonic sort (csrc/bitonic.cu), MTF
-            parts (torch) with the dominance count as a hand-written CUDA
-            kernel (csrc/mtf_dominance.cu), RLE2 (torch); the CUDA sources
-            are built with nvcc at first use into _build/
+            (csrc/mtf.cu) and RLE2 (csrc/rle2.cu) as hand-written CUDA
+            kernels, each beside its plain torch version for CPU tensors;
+            the CUDA sources are built with nvcc at first use into _build/
   block/    per-block device transforms (full chain, or the BWT alone) and
             the pinned, event-synchronised host fetches
   stream/   the hybrid scheduler (device blocks beside native CPU workers,

@@ -24,8 +24,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..kernels.mtf import CHUNK as MTF_CHUNK
 from ..kernels.mtf import mtf_ranks
-from ..kernels.mtf_dominance import CHUNK as MTF_CHUNK
 from ..kernels.rle2 import rle2_encode
 from ..kernels.suffix_sort import bwt_forward
 from .emit import emit_block

@@ -35,7 +35,10 @@ _P = ctypes.c_void_p
 # Each returns cudaGetLastError() after its launch.
 _INTS = ctypes.POINTER(ctypes.c_int)  # host int array, or an int out argument
 SIGNATURES = {
-    "tpubz_mtf_dominance": [_P, _P, _P, _P, _P, ctypes.c_int, _P],
+    # last, n, N, group, scratch, used, ranks, stream
+    "tpubz_mtf_ranks": [_P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P],
+    # ranks, n, N, eob, scratch, nb, syms, rle2_len, freqs, stream
+    "tpubz_rle2": [_P, ctypes.c_int, ctypes.c_int, _P, _P, ctypes.c_int, _P, _P, _P, _P],
     # keys, payload or None, n, plan, len(plan), launched (out), stream
     "tpubz_bitonic_run_i32": [_P, _P, ctypes.c_int, _INTS, ctypes.c_int, _INTS, _P],
     "tpubz_bitonic_run_i64": [_P, _P, ctypes.c_int, _INTS, ctypes.c_int, _INTS, _P],

@@ -1,30 +1,45 @@
 """Move-to-front ranks of a BWT last column, chunk by chunk.
 
 The counterpart of ``tpubz/kernels/mtf.py:mtf_ranks`` (see that module's
-docstring for the formulation). ``mtf_parts`` builds, for each 256-wide
-chunk, each position's in-chunk previous and next occurrence and the
-recency keys at the chunk start, in plain torch; ``ranks_from_parts``
-(``mtf_dominance.py``, the CUDA kernel on the card) turns them into ranks.
+docstring for the formulation). For a CUDA tensor ``mtf_ranks`` launches the
+hand-written kernels of ``csrc/mtf.cu`` (the whole MTF: chunk-start recency
+rows, initial ranks, in-chunk occurrences and the dominance counts) on the
+current stream; for a CPU tensor it runs the plain torch version
+``mtf_ranks_ref``: ``mtf_parts`` builds, for each 256-wide chunk, each
+position's in-chunk previous and next occurrence and the recency keys at the
+chunk start, and ``ranks_from_parts_ref`` turns them into ranks as the
+Pallas kernel ``tpubz/kernels/mtf_pallas.py`` does.
 
-Where the TPU formulation avoided gathers and scatters, this one uses them:
-the (symbol, position) sort is taken back by a scatter, and the initial rank
-of a first-ever occurrence is a gather from the cumulative count of used
-symbols instead of a (nc, 256, 256) compare-count.
+Where the TPU formulation avoided gathers and scatters, the plain version
+uses them: the (symbol, position) sort is taken back by a scatter, and the
+initial rank of a first-ever occurrence is a gather from the cumulative
+count of used symbols instead of a (nc, 256, 256) compare-count.
 """
 from __future__ import annotations
 
+import threading
+
 import torch
 
-from .mtf_dominance import ranks_from_parts
+from . import _build
 
 ABSENT = 256
+CHUNK = 256  # the CUDA kernels run one 256-thread CTA per chunk
+# chunks one CTA of the recency scan walks (csrc/mtf.cu: at most 16); the
+# scan of the group totals then runs over ceil(nc / GROUP) rows
+GROUP = 16
+
+# calls into the kernel library in this process, three kernels each (CPU
+# calls are not counted)
+LAUNCHES = 0
+_launch_lock = threading.Lock()
 
 
-def mtf_parts(last: torch.Tensor, n: int, chunk: int = 256):
+def mtf_parts(last: torch.Tensor, n: int, chunk: int = CHUNK):
     """last: uint8[N] BWT output (first n valid; N % chunk == 0).
 
     Returns (lprev, lnext, keyi int32 (nc, chunk), keyrow int32 (nc, 256),
-    used bool[256]), the inputs of ``ranks_from_parts``."""
+    used bool[256]), the inputs of ``ranks_from_parts_ref``."""
     N = last.shape[0]
     if N % chunk:
         raise ValueError("N must be a multiple of the chunk size")
@@ -84,11 +99,82 @@ def mtf_parts(last: torch.Tensor, n: int, chunk: int = 256):
     )
 
 
-def mtf_ranks(last: torch.Tensor, n: int, chunk: int = 256):
+def ranks_from_parts_ref(lprev, lnext, keyi, keyrow):
+    """The dominance count of ``tpubz/kernels/mtf_pallas.py`` with the srank
+    compare-count fused in, in plain torch. Case 2 compares srank
+    (``mtf_pallas.py:35-37``), not keyi as the jnp form of ``mtf.py:81``
+    does. The two agree only where keys are distinct, which real MTF parts
+    guarantee and random test inputs do not.
+
+    lprev, lnext, keyi: int32 (rows, C); keyrow: int32 (rows, 256).
+    Returns int32 (rows, C). Materializes (rows, C, C) masks."""
+    rows, C = lprev.shape
+    srank = (keyrow[:, None, :] < keyi[:, :, None]).sum(-1, dtype=torch.int32)
+    li = torch.arange(C, dtype=torch.int32, device=lprev.device)
+    ii = li[None, :, None]  # row: position i
+    jj = li[None, None, :]  # col: candidate j
+    before = jj < ii
+    case1 = (jj > lprev[:, :, None]) & (lnext[:, None, :] >= ii)
+    case2 = (lprev[:, None, :] < 0) & (srank[:, None, :] >= srank[:, :, None])
+    mat = before & torch.where((lprev >= 0)[:, :, None], case1, case2)
+    counts = mat.sum(-1, dtype=torch.int32)
+    return counts + torch.where(lprev < 0, srank, 0)
+
+
+def mtf_ranks_ref(last: torch.Tensor, n: int, chunk: int = CHUNK):
+    """Plain torch version of ``mtf_ranks``: ``mtf_parts`` then
+    ``ranks_from_parts_ref``, pad lanes set to 0 as the kernels leave them."""
+    lprev, lnext, keyi, keyrow, used = mtf_parts(last, n, chunk)
+    ranks = ranks_from_parts_ref(lprev, lnext, keyi, keyrow).view(-1)
+    ranks[n:] = 0
+    return ranks, used
+
+
+def _check(last: torch.Tensor, n: int, chunk: int) -> None:
+    if last.dtype != torch.uint8 or last.dim() != 1:
+        raise TypeError("mtf_ranks takes a 1-D uint8 tensor")
+    N = last.shape[0]
+    if chunk != CHUNK:
+        raise ValueError(f"the CUDA kernels take chunks of {CHUNK}, got {chunk}")
+    if N % CHUNK:
+        raise ValueError("N must be a multiple of the chunk size")
+    if not 0 <= n <= N:
+        raise ValueError(f"n={n} outside [0, {N}]")
+    # the kernels sort (recency key << 8 | symbol) in an int32
+    if 2 * N + ABSENT >= 1 << 23:
+        raise ValueError(f"N={N} is too large for the CUDA kernels")
+    if not last.is_contiguous():
+        raise ValueError("the CUDA kernels take a contiguous tensor")
+
+
+def mtf_ranks(last: torch.Tensor, n: int, chunk: int = CHUNK):
     """last: uint8[N] BWT output (first n valid; N % chunk == 0).
 
     Returns (ranks int32[N], used bool[256]): ranks[:n] are the MTF ranks of
-    last[:n] over the sorted used-symbol alphabet; pad lanes are unspecified.
-    """
-    lprev, lnext, keyi, keyrow, used = mtf_parts(last, n, chunk)
-    return ranks_from_parts(lprev, lnext, keyi, keyrow).view(-1), used
+    last[:n] over the sorted used-symbol alphabet; pad lanes are 0. A CUDA
+    tensor launches the kernels on the current stream (chunk must be 256)
+    or raises; a CPU tensor runs the plain version. ``n`` is a host int and
+    nothing is read back."""
+    global LAUNCHES
+    dev = last.device
+    if dev.type == "cpu":
+        return mtf_ranks_ref(last, n, chunk)
+    if dev.type != "cuda":
+        raise ValueError(f"mtf_ranks: unsupported device {dev}")
+    _check(last, n, chunk)
+    N = last.shape[0]
+    nc = N // CHUNK
+    ng = -(-nc // GROUP)
+    scratch = torch.empty((nc + 2 * ng) * CHUNK, dtype=torch.int32, device=dev)
+    used = torch.empty(256, dtype=torch.bool, device=dev)
+    ranks = torch.empty(N, dtype=torch.int32, device=dev)
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.tpubz_mtf_ranks(last.data_ptr(), n, N, GROUP, scratch.data_ptr(),
+                                 used.data_ptr(), ranks.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"tpubz_mtf_ranks launch failed: CUDA error {rc}")
+    with _launch_lock:
+        LAUNCHES += 1
+    return ranks, used

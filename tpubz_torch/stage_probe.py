@@ -1,6 +1,7 @@
 """Where a level-9 stream's time goes on the card, route by route.
 
     python3 -m tpubz_torch.stage_probe [--mib 16] [--seed 2026] [--out FILE]
+                                       [--parent DIR [--reps 1]]
 
 Needs a CUDA card: without one it exits with code 1. The functions take a
 device, so the CPU tests run them at a small size. It encodes the seeded
@@ -9,10 +10,9 @@ mixed corpus plus the edge blocks (``tpubz_torch.corpus``, as
 ``--out``:
 
 - ``stages``: milliseconds per block of each stage of the full device chain
-  on the dispatcher thread (upload, BWT, MTF parts, the dominance kernel,
-  RLE2, fetch), host clock with ``torch.cuda.synchronize()`` after each
-  stage, and of the native emission; medians and sums over the blocks, the
-  first block excluded;
+  on the dispatcher thread (upload, BWT, MTF, RLE2, fetch), host clock
+  with ``torch.cuda.synchronize()`` after each stage, and of the native
+  emission; medians and sums over the blocks, the first block excluded;
 - ``bwt_stages``: the same for the bwt stage: upload, BWT and ``fetch_bwt``
   on the dispatcher, then the native MTF/RLE2 and emission on the host;
 - ``profile``: one device-only stream per stage under ``torch.profiler``:
@@ -28,7 +28,18 @@ mixed corpus plus the edge blocks (``tpubz_torch.corpus``, as
   half, 1x, 2x and 3x the cores) by the hybrid window (``TPUBZ_WINDOW``)
   for each stage, with MB/s, ``dev_blocks`` and ``cpu_blocks``;
 - ``probation``: the same for 1x the cores and window 16 by the cap on
-  device blocks in flight before a stream's first device completion.
+  device blocks in flight before a stream's first device completion;
+- ``chain``: the device microseconds of each kernel that one ``mtf_ranks``
+  and one ``rle2_encode`` call launch on the corpus's first block, from
+  ``torch.profiler``;
+- ``turns``: with ``--parent``, from a fresh process of the parent's tree
+  and of this one in the order parent, this, this, parent (``--reps``
+  times): ``mtf_ranks`` and ``rle2_encode`` ms on the corpus's first block
+  (CUDA events, 20 calls back to back) and their device time
+  (``torch.profiler``, one call), ``stages``, ``bwt_stages`` and
+  ``routes`` (two rounds), each turn with a fresh rig profile. The parent is
+  any checkout of the port, such as a ``git archive`` of an earlier commit
+  unpacked into a directory that ``.gitignore`` lists.
 """
 from __future__ import annotations
 
@@ -45,18 +56,18 @@ import time
 import numpy as np
 import torch
 
-from .block.encode import DeviceBlockEncoder
+from .block.encode import DeviceBlockEncoder, block_n
 from .corpus import edge_blocks, mixed_corpus
 from .format.constants import block_budget
 from .format.crc import block_crc
 from .hostref.rle1 import rle1_blocks
-from .kernels.mtf import mtf_parts
-from .kernels.mtf_dominance import ranks_from_parts
+from .kernels.mtf import mtf_ranks
 from .kernels.rle2 import rle2_encode
 from .kernels.suffix_sort import bwt_forward
 from .native import mtf_rle2_native
 from .stream import api
 
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WINDOWS = (2, 5, 28)
 HYBRID_WINDOWS = (5, 16, 28)
 
@@ -120,11 +131,8 @@ def stage_times(data: bytes, level: int, device) -> dict:
         row = {}
         dev, row["upload"] = _timed(lambda: enc.upload(blk), device)
         (key, last), row["bwt"] = _timed(lambda: bwt_forward(dev, n), device)
-        parts, row["mtf_parts"] = _timed(lambda: mtf_parts(last, n), device)
-        ranks, row["dominance_kernel"] = _timed(lambda: ranks_from_parts(*parts[:4]), device)
-        used = parts[4]
-        rle, row["rle2"] = _timed(
-            lambda: rle2_encode(ranks.view(-1), n, used.sum() + 1), device)
+        (ranks, used), row["mtf"] = _timed(lambda: mtf_ranks(last, n), device)
+        rle, row["rle2"] = _timed(lambda: rle2_encode(ranks, n, used.sum() + 1), device)
         fetched, row["fetch"] = _timed(lambda: enc.fetch((key, *rle, used)), device)
         row["dispatcher_total"] = sum(row.values())
         t0 = time.perf_counter()
@@ -294,11 +302,123 @@ def probation_sweep(data: bytes, level: int, device, reps: int = 3,
     return {"cores": cores, "default": saved, "rows": rows}
 
 
+def _device_us(fn) -> dict:
+    """Device microseconds of one call of fn by kernel name, their sum and
+    their union, from torch.profiler after a warm-up call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name: dict = {}
+    for e in dev:
+        by_name[e.name[:100]] = by_name.get(e.name[:100], 0.0) + e.time_range.end - e.time_range.start
+    return {"sum_us": sum(by_name.values()),
+            "busy_us": _union_us((e.time_range.start, e.time_range.end) for e in dev),
+            "launches": len(dev), "kernels_us": by_name}
+
+
+def chain_profile(mib: int, seed: int) -> dict:
+    """Device µs by kernel of one mtf_ranks and one rle2_encode call on the
+    BWT of the corpus's first level-9 block."""
+    n = 900_000
+    padded = torch.zeros(block_n(9), dtype=torch.uint8, device="cuda")
+    padded[:n] = torch.frombuffer(bytearray(mixed_corpus(mib, seed)[:n]), dtype=torch.uint8).to("cuda")
+    last = bwt_forward(padded, n)[1]
+    ranks, used = mtf_ranks(last, n)
+    eob = used.sum() + 1
+    return {"mtf": _device_us(lambda: mtf_ranks(last, n)),
+            "rle2": _device_us(lambda: rle2_encode(ranks, n, eob))}
+
+
+# runs in a fresh process in either tree: only names both trees define
+_TURN = r"""
+import json, sys, tempfile
+import torch
+from tpubz_torch import stage_probe as sp
+from tpubz_torch.corpus import edge_blocks, mixed_corpus
+from tpubz_torch.kernels.mtf import mtf_ranks
+from tpubz_torch.kernels.rle2 import rle2_encode
+from tpubz_torch.kernels.suffix_sort import bwt_forward
+from tpubz_torch.stream import rigprofile
+
+mib, seed = int(sys.argv[1]), int(sys.argv[2])
+
+def ms(fn, reps=20):
+    fn(); torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record(); b.synchronize()
+    return a.elapsed_time(b) / reps
+
+def device_us(fn):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn(); torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn(); torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return {"sum_us": sum(e.time_range.end - e.time_range.start for e in dev),
+            "busy_us": sp._union_us((e.time_range.start, e.time_range.end) for e in dev),
+            "launches": len(dev)}
+
+corpus = mixed_corpus(mib, seed)
+data = corpus + b"".join(edge_blocks().values())
+n0 = 900_000
+padded = torch.zeros(900_096, dtype=torch.uint8, device="cuda")
+padded[:n0] = torch.frombuffer(bytearray(corpus[:n0]), dtype=torch.uint8).to("cuda")
+last = bwt_forward(padded, n0)[1]
+ranks, used = mtf_ranks(last, n0)
+ranks, eob = ranks.view(-1), used.sum() + 1
+out = {
+    "mtf_ms": ms(lambda: mtf_ranks(last, n0)),
+    "rle2_ms": ms(lambda: rle2_encode(ranks, n0, eob)),
+    "mtf_device": device_us(lambda: mtf_ranks(last, n0)),
+    "rle2_device": device_us(lambda: rle2_encode(ranks, n0, eob)),
+}
+with tempfile.TemporaryDirectory() as cache, sp.env(TPUBZ_TORCH_CACHE=cache):
+    rigprofile.reset_memo()
+    out["stages"] = sp.stage_times(data, 9, "cuda")
+    out["bwt_stages"] = sp.bwt_stage_times(data, 9, "cuda")
+    routes = sp.route_rates(data, 9, "cuda", reps=2)
+out["routes"] = {k: [{"MBps": r["MBps"], "stage": r["stats"].get("stage"),
+                      "dev_blocks": r["stats"].get("dev_blocks"),
+                      "cpu_blocks": r["stats"].get("cpu_blocks")} for r in v]
+                 for k, v in routes.items()}
+print("TURN " + json.dumps(out))
+"""
+
+
+def _turn(tree: str, mib: int, seed: int) -> dict:
+    env_ = dict(os.environ, PYTHONPATH=tree)
+    proc = subprocess.run([sys.executable, "-c", _TURN, str(mib), str(seed)], cwd=tree,
+                          env=env_, capture_output=True, text=True, timeout=900, check=True)
+    line = next(s for s in proc.stdout.splitlines() if s.startswith("TURN "))
+    return json.loads(line[5:])
+
+
+def turns(parent: str, reps: int, mib: int, seed: int) -> list[dict]:
+    """parent, this, this, parent, ``reps`` times, each a fresh process."""
+    out = []
+    for _ in range(reps):
+        for name, tree in (("parent", parent), ("this", ROOT), ("this", ROOT), ("parent", parent)):
+            out.append({"tree": name, **_turn(tree, mib, seed)})
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--mib", type=int, default=16)
     ap.add_argument("--seed", type=int, default=2026)
     ap.add_argument("--out")
+    ap.add_argument("--parent")
+    ap.add_argument("--reps", type=int, default=1)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("stage_probe: torch.cuda.is_available() is False", file=sys.stderr)
@@ -307,18 +427,21 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip()
+    result = {
+        "card": smi,
+        "cpu_count": os.cpu_count(),
+        "torch": torch.__version__,
+        "cuda": torch.version.cuda,
+        "corpus": f"mixed_corpus({args.mib}, seed={args.seed}) + edge_blocks()",
+    }
     data = mixed_corpus(args.mib, args.seed) + b"".join(edge_blocks().values())
     with tempfile.TemporaryDirectory() as cache, env(TPUBZ_TORCH_CACHE=cache):
         from .stream import rigprofile
 
         rigprofile.reset_memo()
-        result = {
-            "card": smi,
-            "cpu_count": os.cpu_count(),
-            "torch": torch.__version__,
-            "cuda": torch.version.cuda,
-            "corpus": f"mixed_corpus({args.mib}, seed={args.seed}) + edge_blocks()",
+        result.update({
             "bytes": len(data),
+            "chain": chain_profile(args.mib, args.seed),
             "stages": stage_times(data, 9, "cuda"),
             "bwt_stages": bwt_stage_times(data, 9, "cuda"),
             "profile": [profile_stream(data, 9, "cuda", s) for s in ("full", "bwt")],
@@ -326,8 +449,11 @@ def main(argv=None) -> int:
             "routes": route_rates(data, 9, "cuda"),
             "hybrid": hybrid_sweep(data, 9, "cuda"),
             "probation": probation_sweep(data, 9, "cuda"),
-        }
+        })
         rigprofile.reset_memo()
+    if args.parent:
+        result["parent"] = os.path.abspath(args.parent)
+        result["turns"] = turns(os.path.abspath(args.parent), args.reps, args.mib, args.seed)
     text = json.dumps(result)
     if args.out:
         with open(args.out, "w") as f:
