@@ -9,14 +9,17 @@ CUDA kernels (tpubz_torch/csrc, nvcc) into tpubz_torch/_build, holds each
 kernel against its plain
 PyTorch version at the level-9 shapes (tolerance 0: the codec is integer;
 MTF and RLE2 on the corpus's first block and the three edge blocks, RLE2
-also on random ranks with long zero runs),
+also on random ranks with long zero runs; the BWT's library call, key and
+every lane of the last column, on the same four blocks),
 checks the BWT on the card against the port's plain path on the CPU for
 real and edge blocks, and a short level-9 stream byte for byte, then drives
 level-9 multi-block encode through
 tpubz_torch.compress on a seeded corpus of at least 16 MiB and round-trips
 it through tpubz_torch.decompress and, where it is installed, bunzip2. That
 run ([path]) is device-only on the full stage (TPUBZ_HYBRID_CPU=0,
-TPUBZ_DEVICE_STAGE=full). The same data then goes through the bwt stage
+TPUBZ_DEVICE_STAGE=full); its data ends in a periodic tail cut so that the
+last block is a whole number of periods, a block with tied rotations, as a
+file that ends in padding gives. The same data then goes through the bwt stage
 ([stage_bwt], device-only) and the default hybrid routing with a fresh rig
 profile ([hybrid], beside compress_cpu), each byte-equal to [path]'s stream
 with its kernel counts read from zero; and the short stream through
@@ -33,7 +36,11 @@ of the bytes it must move over 3.35 TB/s and its integer operations over
 the int32 rate of the card's CUDA cores (132 SMs x 64 lanes x 1.98 GHz,
 16.7 T/s; the data sheet's 67 TFLOP/s is the float32 rate: twice the
 lanes, and an FMA counted as two). The MTF and RLE2 launches are calls of their wrappers (three
-kernels each); the bitonic sorts' launches are calls of their wrappers;
+kernels each); the BWT's are calls of its wrapper (one library call a
+block: three kernels and a sort per doubling round, then the last column);
+the bitonic sorts' launches are the sorts run on the card, which on the
+main path are the BWT call's (a 2op sort per round, a 1op sort per block
+with ties);
 stage_passes' are the launches of the two pass kernels
 (bitonic_global, bitonic_tile) that it shares with the sorts, counted where
 the sorts launch them. The port imports neither tpubz nor jax, and the run
@@ -42,6 +49,7 @@ checks that neither was loaded. The last line is
 """
 import hashlib
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -68,9 +76,10 @@ def _say(phase, msg):
 
 
 def _zero_counts():
-    from tpubz_torch.kernels import bitonic, mtf, rle2
+    from tpubz_torch.kernels import bitonic, mtf, rle2, suffix_sort
 
     mtf.LAUNCHES = rle2.LAUNCHES = 0
+    suffix_sort.LAUNCHES = suffix_sort.ROUNDS_RUN = suffix_sort.KERNEL_LAUNCHES = 0
     bitonic.LAUNCHES = bitonic.PASS_LAUNCHES = 0
     bitonic.CALLS.update(dict.fromkeys(bitonic.CALLS, 0))
 
@@ -115,6 +124,25 @@ def _cuda_ms(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
+def _with_tied_tail(data):
+    """data plus a tail of all 256 byte values in order, cut so that the
+    stream's last level-9 block lies inside the tail and is a whole number
+    of its periods: every rotation of that block has 3,000-odd equals."""
+    from tpubz_torch.format.constants import block_budget
+    from tpubz_torch.hostref.rle1 import rle1_blocks
+
+    period = bytes(range(256))
+    reps = 4000  # more than one block: the last block starts inside the tail
+    while True:
+        out = data + period * reps
+        _, blocks = rle1_blocks(np.frombuffer(out, np.uint8), block_budget(LEVEL))
+        o0, o1, i0, _ = blocks[-1]
+        whole = (o1 - o0) // 256 * 256  # the tail has no runs: RLE1 leaves it as it is
+        if whole and i0 >= len(data):
+            return out[: len(out) - ((o1 - o0) - whole)]
+        reps += 2
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -152,10 +180,11 @@ def _smoke(tmp):
 
     corpus = mixed_corpus(CORPUS_MIB, SEED)
     edges = edge_blocks()
-    data = corpus + b"".join(edges.values())
+    data = _with_tied_tail(corpus + b"".join(edges.values()))
     _say("corpus", f"corpus=mixed_corpus({CORPUS_MIB}, seed={SEED}) corpus_bytes={len(corpus)} "
-            f"corpus_sha256={hashlib.sha256(corpus).hexdigest()} with_edges_bytes={len(data)} "
-            f"with_edges_sha256={hashlib.sha256(data).hexdigest()}")
+            f"corpus_sha256={hashlib.sha256(corpus).hexdigest()} "
+            f"with_edges_and_tied_tail_bytes={len(data)} "
+            f"with_edges_and_tied_tail_sha256={hashlib.sha256(data).hexdigest()}")
 
     N = block_n(LEVEL)
     n0 = LEVEL * 100_000
@@ -163,6 +192,7 @@ def _smoke(tmp):
     padded[:n0] = torch.frombuffer(bytearray(corpus[:n0]), dtype=torch.uint8).to(dev)
     rng = np.random.default_rng(SEED)
     chain = chain_kernels(padded, n0, edges, rng)
+    chain["bwt"] = bwt_kernels(padded, n0, edges)
 
     # the bitonic kernels against their plain versions at 2^20, exactly:
     # int32 keys in [0, 50), whose duplicates move payloads by the tie rule;
@@ -288,8 +318,9 @@ def _smoke(tmp):
         stream = tpubz_torch.compress(data, LEVEL, device="cuda")
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {"mtf": mtf.LAUNCHES, "rle2": rle2.LAUNCHES}
-    sort_launches, sort_calls = bitonic.LAUNCHES, dict(bitonic.CALLS)
+    launches = {"mtf": mtf.LAUNCHES, "rle2": rle2.LAUNCHES, "bwt": suffix_sort.LAUNCHES}
+    rounds, bwt_kernel_launches = suffix_sort.ROUNDS_RUN, suffix_sort.KERNEL_LAUNCHES
+    sort_calls = dict(bitonic.CALLS)
     pass_launches = bitonic.PASS_LAUNCHES
     blocks = tpubz_torch.stream.api.last_stream_stats["blocks"]
     if tpubz_torch.decompress(stream) != data:
@@ -299,19 +330,24 @@ def _smoke(tmp):
             f"round_trips={'+'.join(ran)}")
 
     # the main path went through the kernels, without jax: every block ran
-    # its MTF and RLE2, at least one doubling round (2op) and its
-    # last-column sort (1op)
+    # the BWT's library call, its MTF and its RLE2; the call ran a 2op sort
+    # per doubling round (at least one a block), a 1op sort only for a
+    # block with tied rotations (the last one), and every sort its passes
     if min(launches.values()) < blocks:
-        raise AssertionError(f"MTF and RLE2 launches {launches} for {blocks} blocks")
-    if sort_launches < 2 * blocks or min(sort_calls["bitonic_1op"], sort_calls["bitonic_2op"]) < blocks:
-        raise AssertionError(f"bitonic calls {sort_calls} for {blocks} blocks")
-    if pass_launches < sort_launches:
-        raise AssertionError(f"{pass_launches} pass-kernel launches for {sort_launches} sorts")
+        raise AssertionError(f"BWT, MTF and RLE2 launches {launches} for {blocks} blocks")
+    if sort_calls["bitonic_2op"] != rounds or rounds < blocks or not (
+            1 <= sort_calls["bitonic_1op"] < blocks):
+        raise AssertionError(f"bitonic sorts {sort_calls}, {rounds} rounds for {blocks} blocks")
+    sorts_run = sort_calls["bitonic_1op"] + sort_calls["bitonic_2op"]
+    if pass_launches < sorts_run or bwt_kernel_launches < 3 * rounds + blocks:
+        raise AssertionError(f"{pass_launches} pass-kernel and {bwt_kernel_launches} BWT-kernel "
+                             f"launches for {sorts_run} sorts in {rounds} rounds")
     _no_reference_modules()
     mb = len(data) / 1e6
-    _say("path", f"blocks={blocks} mtf_launches={launches['mtf']} "
+    _say("path", f"blocks={blocks} bwt_launches={launches['bwt']} bwt_rounds={rounds} "
+            f"bwt_kernel_launches={bwt_kernel_launches} mtf_launches={launches['mtf']} "
             f"rle2_launches={launches['rle2']} "
-            f"bitonic_launches={sort_launches} bitonic_calls={sort_calls} "
+            f"bitonic_wrapper_calls={bitonic.LAUNCHES} bitonic_sorts={sort_calls} "
             f"pass_kernel_launches={pass_launches} MB={mb} seconds={dt} "
             f"MBps={mb / dt} tpubz_imported=False jax_imported=False")
 
@@ -339,9 +375,10 @@ def _smoke(tmp):
         "bound_ms": chain[name]["bound"][0],
         "bound_by": chain[name]["bound"][1],
         "library_ms": None,
-    } for name, replaces in (("mtf", "tpubz/kernels/mtf_pallas.py:46"),
+    } for name, replaces in (("bwt", "tpubz/kernels/suffix_sort.py:50"),
+                             ("mtf", "tpubz/kernels/mtf_pallas.py:46"),
                              ("rle2", "tpubz/kernels/rle2.py:34"))}
-    print(json.dumps({"kernels": [rows["mtf"]] + [{
+    print(json.dumps({"kernels": [rows["bwt"], rows["mtf"]] + [{
         "name": name,
         "route": "cuda",
         "source": "tpubz_torch/csrc/bitonic.cu",
@@ -435,11 +472,75 @@ def chain_kernels(padded, n0, edges, rng):
     return result
 
 
+def bwt_kernels(padded, n0, edges):
+    """The BWT's library call against its plain version on the card, exactly
+    (the key and every lane of the last column), on the corpus's first block
+    and each edge block; a 1op sort must run for the blocks with tied
+    rotations and for no other. Then the call's ms and the plain version's
+    on the corpus block (CUDA events; the call waits for each round's class
+    count, one round behind the card), its rounds, and the bounds of the
+    call and of each of its kernels."""
+    from tpubz_torch.kernels import bitonic, suffix_sort
+    from tpubz_torch.kernels.suffix_sort import bwt_forward, bwt_forward_ref
+
+    dev, N = padded.device, padded.shape[0]
+    inputs = {"corpus_block0": (padded, n0)}
+    for name, blk in edges.items():
+        data = torch.zeros(N, dtype=torch.uint8, device=dev)
+        data[: len(blk)] = torch.frombuffer(bytearray(blk), dtype=torch.uint8).to(dev)
+        inputs[name] = (data, len(blk))
+    tied = {"one_byte_run", "all256"}
+    err = 0
+    for name, (data, n) in inputs.items():
+        before = (suffix_sort.LAUNCHES, suffix_sort.ROUNDS_RUN, bitonic.CALLS["bitonic_1op"])
+        key, last = bwt_forward(data, n)
+        torch.cuda.synchronize()
+        calls = suffix_sort.LAUNCHES - before[0]
+        rounds = suffix_sort.ROUNDS_RUN - before[1]
+        one_op = bitonic.CALLS["bitonic_1op"] - before[2]
+        rkey, rlast = bwt_forward_ref(data, n)
+        mismatches = int(key != rkey) + int((last != rlast).sum())
+        e = max(abs(int(key) - int(rkey)), int((last.int() - rlast.int()).abs().max()))
+        err = max(err, e)
+        _say("kernel", f"bwt vs plain inputs={name} n={n} N={N} rounds={rounds} "
+                f"round_cap={suffix_sort.call_sizes(n)[2]} one_op_sorts={one_op} "
+                f"mismatches={mismatches} max_abs_err={e} tolerance=0")
+        if mismatches:
+            raise AssertionError(f"bwt_forward disagrees with its plain version on {name}")
+        if calls != 1 or one_op != (name in tied):
+            raise AssertionError(f"bwt_forward on {name}: {calls} calls, {one_op} 1op sorts")
+    before = suffix_sort.ROUNDS_RUN
+    bwt_forward(padded, n0)
+    rounds = suffix_sort.ROUNDS_RUN - before
+    ms = _cuda_ms(lambda: bwt_forward(padded, n0), 20)
+    plain_ms = _cuda_ms(lambda: bwt_forward_ref(padded, n0), 5)
+    # what a BWT of these bytes needs, whatever the algorithm: the block read
+    # and the column and key written once, against the n log2 n compares of a
+    # comparison sort of its rotations. The compares this formulation does (a
+    # bitonic network per round) are printed beside it and are no bound.
+    P = suffix_sort.padded_length(n0)
+    bound = _bound(n0 + N + 8, n0 * math.log2(n0))
+    sorts_compares = rounds * len(bitonic.network(P.bit_length() - 1)) * P // 2
+    # each kernel alone: what it reads and writes once, one operation a lane
+    parts = {
+        "bwt_seed_keys": _bound(n0 + 12 * P, P),
+        "bwt_round_keys": _bound(2 * 4 * n0 + 12 * P, P),
+        "bwt_rerank_count+bwt_rerank": _bound(12 * n0 + 4 * n0, n0),
+        "bwt_last_column": _bound(n0 + 4 * n0 + N + 8, N),
+    }
+    _say("kernel", f"bwt N={N} n={n0} kernel_ms={ms} plain_ms={plain_ms} rounds={rounds} "
+            f"calls_per_block=1 bound_us={bound[0] * 1e3} bound_by={bound[1]} "
+            f"this_formulation_compares_int32_us={sorts_compares / INT32_OPS_PER_S * 1e6} "
+            + " ".join(f"{k}_bound_us={v[0] * 1e3}" for k, v in parts.items())
+            + " (CUDA events, inputs=corpus_block0)")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound": bound}
+
+
 def stage_bwt(tpubz_torch, data, stream):
     """The bwt stage, device-only, on the main path's data: the same bytes,
-    the bitonic sorts on every block and no MTF or RLE2 kernel (they lie
-    off this stage)."""
-    from tpubz_torch.kernels import bitonic, mtf, rle2
+    the BWT's library call on every block and no MTF or RLE2 kernel (they
+    lie off this stage)."""
+    from tpubz_torch.kernels import bitonic, mtf, rle2, suffix_sort
     from tpubz_torch.stage_probe import DEVICE_ONLY, env
 
     _zero_counts()
@@ -455,20 +556,22 @@ def stage_bwt(tpubz_torch, data, stream):
         raise AssertionError("the bwt stage's stream differs from the full stage's")
     if st["stage"] != "bwt" or st["dev_blocks"] != st["blocks"]:
         raise AssertionError(f"not a device-only bwt stream: {st}")
-    if sum(calls.values()) < 2 * st["blocks"] or calls["bitonic_1op"] < st["blocks"]:
-        raise AssertionError(f"bitonic calls {calls} for {st['blocks']} blocks")
+    if suffix_sort.LAUNCHES != st["blocks"] or calls["bitonic_2op"] < st["blocks"]:
+        raise AssertionError(f"{suffix_sort.LAUNCHES} BWT calls, bitonic sorts {calls} for "
+                             f"{st['blocks']} blocks")
     if mtf.LAUNCHES or rle2.LAUNCHES:
         raise AssertionError(f"{mtf.LAUNCHES} MTF and {rle2.LAUNCHES} RLE2 launches on the bwt stage")
     mb = len(data) / 1e6
-    _say("stage_bwt", f"blocks={st['blocks']} stream==path_stream bitonic_calls={calls} "
-         f"bitonic_launches={bitonic.LAUNCHES} pass_kernel_launches={bitonic.PASS_LAUNCHES} "
+    _say("stage_bwt", f"blocks={st['blocks']} stream==path_stream "
+         f"bwt_launches={suffix_sort.LAUNCHES} bwt_rounds={suffix_sort.ROUNDS_RUN} "
+         f"bitonic_sorts={calls} pass_kernel_launches={bitonic.PASS_LAUNCHES} "
          f"mtf_launches=0 rle2_launches=0 MB={mb} seconds={dt} MBps={mb / dt}")
 
 
 def hybrid(tpubz_torch, data, stream, tmp):
     """The default routing (hybrid CPU pool, stage from a fresh profile) on
     the main path's data, then compress_cpu on the same data."""
-    from tpubz_torch.kernels import bitonic, mtf, rle2
+    from tpubz_torch.kernels import bitonic, mtf, rle2, suffix_sort
     from tpubz_torch.stage_probe import env
     from tpubz_torch.stream import rigprofile
 
@@ -495,7 +598,8 @@ def hybrid(tpubz_torch, data, stream, tmp):
     mb = len(data) / 1e6
     _say("hybrid", f"blocks={st['blocks']} stage={st['stage']} dev_blocks={st['dev_blocks']} "
          f"cpu_blocks={st['cpu_blocks']} cpu_workers={st['cpu_workers']} window={st['window']} "
-         f"stream==path_stream bitonic_calls={dict(bitonic.CALLS)} "
+         f"stream==path_stream bwt_launches={suffix_sort.LAUNCHES} "
+         f"bitonic_sorts={dict(bitonic.CALLS)} "
          f"mtf_launches={mtf.LAUNCHES} rle2_launches={rle2.LAUNCHES} MB={mb} seconds={dt} "
          f"MBps={mb / dt} compress_cpu_seconds={cpu_dt} compress_cpu_MBps={mb / cpu_dt} "
          f"cpu_count={os.cpu_count()}")

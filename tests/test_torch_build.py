@@ -40,7 +40,7 @@ def test_build_compiles_every_source_for_sm90a_then_reuses(tmp_path, build_dir, 
     assert os.path.exists(_build.LIB_PATH)
     *compiles, link = log.read_text().splitlines()
     srcs = _build.sources()
-    for name in ("mtf.cu", "rle2.cu", "bitonic.cu"):
+    for name in ("mtf.cu", "rle2.cu", "bitonic.cu", "bwt.cu"):
         assert any(s.endswith(name) for s in srcs)
     assert sorted(c.split()[c.split().index("-c") + 1] for c in compiles) == srcs
     assert all("arch=compute_90a,code=sm_90a" in c and "-shared" not in c for c in compiles)
@@ -101,6 +101,8 @@ def test_every_entry_point_passes_pointers_as_void_p():
     assert _build.SIGNATURES["tpubz_mtf_ranks"] == [P, I, I, I, P, P, P, P]
     assert _build.SIGNATURES["tpubz_rle2"] == [P, I, I, P, P, I, P, P, P, P]
     ints = ctypes.POINTER(ctypes.c_int)
+    assert _build.SIGNATURES["tpubz_bwt_forward"] == [P, I, I, P, I, P, ints, I, P, P, ints, P]
+    assert _build.SIGNATURES["tpubz_bwt_sizes"] == [I, ints]
     for key in ("i32", "i64"):
         assert _build.SIGNATURES[f"tpubz_bitonic_run_{key}"] == [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ints, ctypes.c_int, ints,

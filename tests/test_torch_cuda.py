@@ -282,36 +282,139 @@ def test_stage_passes_match_plain(cuda, dtype, js):
     assert torch.equal(got, want)
 
 
+_rng = np.random.default_rng(777)
 _BWT_CASES = {
     "banana": b"banana" * 30,
     "aaaa": b"aaaa" * 100,
     "n1": b"x",
-    "n777": bytes(np.random.default_rng(777).integers(0, 20, 777, dtype=np.uint8)),
+    "n2_same": b"zz",
+    "n2": b"ba",
+    "n3": b"aba",
+    "n255": bytes(_rng.integers(0, 4, 255, dtype=np.uint8)),
+    "n256": bytes(_rng.integers(0, 4, 256, dtype=np.uint8)),
+    "n257": bytes(_rng.integers(0, 4, 257, dtype=np.uint8)),
+    "n777": bytes(_rng.integers(0, 20, 777, dtype=np.uint8)),
+    "n2047": bytes(_rng.integers(0, 2, 2047, dtype=np.uint8)),
+    "n2049": bytes(_rng.integers(0, 2, 2049, dtype=np.uint8)),
     "near_periodic": b"ab" * 500 + b"c",
+    "period7": b"abcabca" * 300,
+    "period64_flip": bytes(_rng.integers(0, 256, 64, dtype=np.uint8)) * 20 + b"!" + bytes(63),
+    "period257": bytes(_rng.integers(0, 5, 257, dtype=np.uint8)) * 12,
     "all256": bytes(range(256)) * 4,
-    "pow2": bytes(np.random.default_rng(2).integers(0, 3, 4096, dtype=np.uint8)),
+    "pow2": bytes(_rng.integers(0, 3, 4096, dtype=np.uint8)),
+    "text": b"the quick brown fox jumps over the lazy dog; " * 90 + b"pack my box.",
 }
+_BWT_TIED = {"banana", "aaaa", "n2_same", "period7", "period257", "all256", "level9_one_byte_run",
+             "level9_all256"}
 
 
-@pytest.mark.parametrize("case", list(_BWT_CASES) + ["level9_corpus"])
+def _bwt_case(case):
+    if case == "level9_corpus":
+        return mixed_corpus(1, 3)[:900_000]
+    if case.startswith("level9_"):
+        return edge_blocks()[case.removeprefix("level9_")]
+    return _BWT_CASES[case]
+
+
+@pytest.mark.parametrize("case", list(_BWT_CASES) + [
+    "level9_corpus", "level9_near_periodic", "level9_one_byte_run", "level9_all256"])
 def test_bwt_forward_on_card_matches_cpu(cuda, case):
-    """bwt_forward on the card (bitonic kernels) gives the key and last
-    column of the port's CPU path (the plain network), pad lanes zero, and
-    launches at least one 2op round and the 1op last-column sort."""
-    from tpubz_torch.kernels import bitonic
+    """bwt_forward on the card (one library call: the BWT kernels around
+    the bitonic sort) gives the key and last column of the plain version on
+    the card, pad lanes zero, with one counted call, a 2op sort per round run
+    and a 1op sort only where ties remain; small cases also equal the plain
+    version on the CPU."""
+    from tpubz_torch.kernels import bitonic, suffix_sort
 
-    c = mixed_corpus(1, 3)[:900_000] if case == "level9_corpus" else _BWT_CASES[case]
-    N = 900_096 if case == "level9_corpus" else 4352
+    c = _bwt_case(case)
+    N = 900_096 if case.startswith("level9_") else 4352
     data = torch.zeros(N, dtype=torch.uint8)
     data[: len(c)] = torch.frombuffer(bytearray(c), dtype=torch.uint8)
-    calls = dict(bitonic.CALLS)
-    key, last = bwt_forward(data.to(cuda), len(c))
-    ckey, clast = bwt_forward(data, len(c))
-    assert int(key) == int(ckey)
-    assert torch.equal(last.cpu(), clast)
-    if len(c) > 1:
-        assert bitonic.CALLS["bitonic_2op"] > calls["bitonic_2op"]
-        assert bitonic.CALLS["bitonic_1op"] == calls["bitonic_1op"] + 1
+    on_card = data.to(cuda)
+    calls, before = dict(bitonic.CALLS), (suffix_sort.LAUNCHES, suffix_sort.ROUNDS_RUN)
+    key, last = bwt_forward(on_card, len(c))
+    torch.cuda.synchronize()
+    rounds = suffix_sort.ROUNDS_RUN - before[1]
+    assert suffix_sort.LAUNCHES == before[0] + 1
+    assert 1 <= rounds <= suffix_sort.call_sizes(len(c))[2]
+    assert bitonic.CALLS["bitonic_2op"] == calls["bitonic_2op"] + rounds
+    assert bitonic.CALLS["bitonic_1op"] == calls["bitonic_1op"] + (case in _BWT_TIED)
+    assert key.device.type == "cuda" and key.dtype == torch.int64 and key.dim() == 0
+    rkey, rlast = suffix_sort.bwt_forward_ref(on_card, len(c))
+    assert int(key) == int(rkey) and torch.equal(last, rlast)
+    assert not last[len(c):].any()
+    if not case.startswith("level9_"):
+        ckey, clast = suffix_sort.bwt_forward_ref(data, len(c))
+        assert int(key) == int(ckey) and torch.equal(last.cpu(), clast)
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 6, 7, 100, 1 << 10, 900_000, 1 << 20])
+def test_bwt_call_sizes(cuda, n):
+    """The library's sizes for a block of n bytes: the cap covers n
+    (3 * 2^(cap-2) >= n, the round after stalls) and is the least that does,
+    every round has a pinned word, and the scratch holds at least the keys,
+    positions and ranks of P lanes."""
+    from tpubz_torch.kernels import suffix_sort
+
+    nbytes, words, cap = suffix_sort.call_sizes(n)
+    assert 3 << (cap - 2) >= n and (cap == 2 or 3 << (cap - 3) < n)
+    assert words >= cap
+    assert nbytes > 16 * suffix_sort.padded_length(n)
+
+
+def test_bwt_forward_block_after_a_periodic_block(cuda):
+    """Nothing of a block's state outlives its call: an ordinary block gives
+    the same key and column after a periodic block (ties, a stall round) and
+    after a near-periodic one (many rounds) as on its own."""
+    N = 900_096
+    blocks = {"corpus": mixed_corpus(1, 5)[:900_000], **edge_blocks()}
+    data = {}
+    for name, c in blocks.items():
+        data[name] = torch.zeros(N, dtype=torch.uint8, device=cuda)
+        data[name][: len(c)] = torch.frombuffer(bytearray(c), dtype=torch.uint8).to(cuda)
+    n = len(blocks["corpus"])
+    key, last = bwt_forward(data["corpus"], n)
+    for name in ("one_byte_run", "all256", "near_periodic"):
+        bwt_forward(data[name], len(blocks[name]))
+        again_key, again_last = bwt_forward(data["corpus"], n)
+        torch.cuda.synchronize()
+        assert int(again_key) == int(key) and torch.equal(again_last, last)
+
+
+def test_bwt_forward_two_threads_two_encoders(cuda):
+    """Two encoders on two threads, each under its own stream, give the
+    bytes that one encoder gives block by block."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    arr = np.frombuffer(_level9_data(), np.uint8)
+    out, cuts = rle1_blocks(arr, block_budget(9))
+    blocks = [out[o0:o1] for o0, o1, _, _ in cuts]
+    one = DeviceBlockEncoder(9, cuda)
+    want = [one.fetch_bwt(one.transform_bwt(b)) for b in blocks]
+
+    def run(order):
+        enc = DeviceBlockEncoder(9, cuda)
+        with torch.cuda.stream(enc.stream):
+            return {i: enc.fetch_bwt(enc.transform_bwt(blocks[i])) for i in order}
+
+    idx = list(range(len(blocks)))
+    with ThreadPoolExecutor(2) as ex:
+        got = [f.result() for f in (ex.submit(run, idx * 2), ex.submit(run, idx[::-1] * 2))]
+    for res in got:
+        for i, (key, last) in res.items():
+            assert key == want[i][0] and np.array_equal(last, want[i][1])
+
+
+def test_bwt_forward_rejects_what_the_kernels_do_not_take(cuda):
+    data = torch.zeros(1024, dtype=torch.uint8, device=cuda)
+    with pytest.raises(TypeError):
+        bwt_forward(data[::2], 10)
+    with pytest.raises(TypeError):
+        bwt_forward(data.int(), 10)
+    with pytest.raises(ValueError):
+        bwt_forward(data, 1025)
+    key, last = bwt_forward(data, 0)
+    assert int(key) == 0 and not last.any()
 
 
 def test_fetch_bwt_pinned_copy_matches_sync(cuda):
@@ -345,11 +448,11 @@ def test_fetch_bwt_pinned_copy_matches_sync(cuda):
 def test_level9_routes_match_compress_cpu(cuda, route, monkeypatch, tmp_path):
     """The bwt stage (device-only), the default hybrid and compress_file on
     the card each equal compress_cpu at level 9, byte for byte."""
-    from tpubz_torch.kernels import bitonic
+    from tpubz_torch.kernels import suffix_sort
     from tpubz_torch.stream.files import compress_file
 
     d = _level9_data()
-    calls = bitonic.CALLS["bitonic_1op"]
+    calls = suffix_sort.LAUNCHES
     if route == "bwt":
         monkeypatch.setenv("TPUBZ_DEVICE_STAGE", "bwt")
         launches = (mtf.LAUNCHES, rle2.LAUNCHES)
@@ -367,5 +470,5 @@ def test_level9_routes_match_compress_cpu(cuda, route, monkeypatch, tmp_path):
         got = dst.read_bytes()
     st = tpubz_torch.stream.api.last_stream_stats
     assert st["dev_blocks"] >= 1
-    assert bitonic.CALLS["bitonic_1op"] - calls == st["dev_blocks"]
+    assert suffix_sort.LAUNCHES - calls == st["dev_blocks"]
     assert got == compress_cpu(d, 9)

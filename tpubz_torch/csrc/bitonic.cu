@@ -46,6 +46,8 @@
 
 #include <cstdint>
 
+#include "bitonic.cuh"
+
 namespace {
 
 constexpr int kMaxRegsLog2 = 5;
@@ -234,8 +236,9 @@ __device__ __forceinline__ void copy_out(T* g, const T* s, int count) {
 template <typename K, bool kPayload, int R>
 __global__ void __launch_bounds__(max_tile_threads(R))
     bitonic_tile(K* __restrict__ keys, int32_t* __restrict__ payload, int log2_tile,
-                 TilePlan plan) {
+                 TilePlan plan, const int* __restrict__ done) {
   constexpr int E = 1 << R;
+  if (done != nullptr && *done != 0) return;  // the whole grid agrees
   extern __shared__ __align__(16) unsigned char smem[];
   K* sk = reinterpret_cast<K*>(smem);
   int32_t* sp = reinterpret_cast<int32_t*>(smem + (sizeof(K) << log2_tile));
@@ -308,11 +311,16 @@ __global__ void __launch_bounds__(max_tile_threads(R))
 }
 
 // Passes (k, j_lo + R - 1), ..., (k, j_lo) in device memory, j_lo >= the
-// tile bits; bit k of every index a thread holds is its base's.
+// tile bits; bit k of every index a thread holds is its base's. Both pass
+// kernels take `done`: null, or a device int written before the launch; when
+// it is not 0 the kernel returns at once (a doubling round of the BWT that
+// was enqueued before the host knew the sort had converged).
 template <typename K, bool kPayload, int R>
 __global__ void __launch_bounds__(kGlobalThreads)
-    bitonic_global(K* __restrict__ keys, int32_t* __restrict__ payload, int n, int j_lo, int k) {
+    bitonic_global(K* __restrict__ keys, int32_t* __restrict__ payload, int n, int j_lo, int k,
+                   const int* __restrict__ done) {
   constexpr int E = 1 << R;
+  if (done != nullptr && *done != 0) return;
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= (n >> R)) return;
   const int low = t & ((1 << j_lo) - 1);
@@ -347,7 +355,7 @@ __global__ void __launch_bounds__(kGlobalThreads)
 
 template <typename K, bool kPayload, int R>
 cudaError_t launch_tile(K* keys, int32_t* payload, int n, int log2_tile, const TilePlan& plan,
-                        cudaStream_t stream) {
+                        const int* done, cudaStream_t stream) {
   const int smem = (sizeof(K) + (kPayload ? sizeof(int32_t) : 0)) << log2_tile;
   static bool big_smem = false;  // the attribute is set once per instantiation
   if (smem > 48 * 1024 && !big_smem) {
@@ -357,42 +365,43 @@ cudaError_t launch_tile(K* keys, int32_t* payload, int n, int log2_tile, const T
     big_smem = true;
   }
   bitonic_tile<K, kPayload, R>
-      <<<n >> log2_tile, (1 << log2_tile) >> R, smem, stream>>>(keys, payload, log2_tile, plan);
+      <<<n >> log2_tile, (1 << log2_tile) >> R, smem, stream>>>(keys, payload, log2_tile, plan,
+                                                                 done);
   return cudaGetLastError();
 }
 
 template <typename K, bool kPayload>
 cudaError_t launch_tile_r(int R, K* keys, int32_t* payload, int n, int log2_tile,
-                          const TilePlan& plan, cudaStream_t stream) {
+                          const TilePlan& plan, const int* done, cudaStream_t stream) {
   switch (R) {
-    case 1: return launch_tile<K, kPayload, 1>(keys, payload, n, log2_tile, plan, stream);
-    case 2: return launch_tile<K, kPayload, 2>(keys, payload, n, log2_tile, plan, stream);
-    case 3: return launch_tile<K, kPayload, 3>(keys, payload, n, log2_tile, plan, stream);
-    case 4: return launch_tile<K, kPayload, 4>(keys, payload, n, log2_tile, plan, stream);
-    case 5: return launch_tile<K, kPayload, 5>(keys, payload, n, log2_tile, plan, stream);
+    case 1: return launch_tile<K, kPayload, 1>(keys, payload, n, log2_tile, plan, done, stream);
+    case 2: return launch_tile<K, kPayload, 2>(keys, payload, n, log2_tile, plan, done, stream);
+    case 3: return launch_tile<K, kPayload, 3>(keys, payload, n, log2_tile, plan, done, stream);
+    case 4: return launch_tile<K, kPayload, 4>(keys, payload, n, log2_tile, plan, done, stream);
+    case 5: return launch_tile<K, kPayload, 5>(keys, payload, n, log2_tile, plan, done, stream);
   }
   return cudaErrorInvalidValue;
 }
 
 template <typename K, bool kPayload, int R>
-cudaError_t launch_global(K* keys, int32_t* payload, int n, int j_lo, int k,
+cudaError_t launch_global(K* keys, int32_t* payload, int n, int j_lo, int k, const int* done,
                           cudaStream_t stream) {
   const int threads = n >> R;
   bitonic_global<K, kPayload, R>
       <<<(threads + kGlobalThreads - 1) / kGlobalThreads, kGlobalThreads, 0, stream>>>(
-          keys, payload, n, j_lo, k);
+          keys, payload, n, j_lo, k, done);
   return cudaGetLastError();
 }
 
 template <typename K, bool kPayload>
 cudaError_t launch_global_r(int r, K* keys, int32_t* payload, int n, int j_lo, int k,
-                            cudaStream_t stream) {
+                            const int* done, cudaStream_t stream) {
   switch (r) {
-    case 1: return launch_global<K, kPayload, 1>(keys, payload, n, j_lo, k, stream);
-    case 2: return launch_global<K, kPayload, 2>(keys, payload, n, j_lo, k, stream);
-    case 3: return launch_global<K, kPayload, 3>(keys, payload, n, j_lo, k, stream);
-    case 4: return launch_global<K, kPayload, 4>(keys, payload, n, j_lo, k, stream);
-    case 5: return launch_global<K, kPayload, 5>(keys, payload, n, j_lo, k, stream);
+    case 1: return launch_global<K, kPayload, 1>(keys, payload, n, j_lo, k, done, stream);
+    case 2: return launch_global<K, kPayload, 2>(keys, payload, n, j_lo, k, done, stream);
+    case 3: return launch_global<K, kPayload, 3>(keys, payload, n, j_lo, k, done, stream);
+    case 4: return launch_global<K, kPayload, 4>(keys, payload, n, j_lo, k, done, stream);
+    case 5: return launch_global<K, kPayload, 5>(keys, payload, n, j_lo, k, done, stream);
   }
   return cudaErrorInvalidValue;
 }
@@ -403,16 +412,15 @@ int log2_of(int n) {
   return m;
 }
 
-// Runs the encoded plan (see bitonic.py:encode) on n = 2^m keys, counting
-// kernel launches into *launched. A record that does not fit the kernels'
-// limits returns cudaErrorInvalidValue before any launch of its own.
+// Runs the encoded plan (see bitonic.py:encode) on n = 2^m keys, adding its
+// kernel launches to *launched; every pass kernel gets `done`. A record
+// that does not fit the kernels' limits returns cudaErrorInvalidValue before
+// any launch of its own.
 template <typename K>
 int run_plan(void* keys_v, void* payload_v, int n, const int* plan, int plan_len, int* launched,
-             void* stream_v) {
-  *launched = 0;
+             const int* done, cudaStream_t stream) {
   K* keys = static_cast<K*>(keys_v);
   int32_t* payload = static_cast<int32_t*>(payload_v);
-  const auto stream = static_cast<cudaStream_t>(stream_v);
   const int m = log2_of(n);
   int i = 0;
   while (i < plan_len) {
@@ -424,8 +432,8 @@ int run_plan(void* keys_v, void* payload_v, int n, const int* plan, int plan_len
       if (r < 1 || r > kMaxRegsLog2 || j_lo < 0 || j_lo + r > m || k < j_lo + r) {
         return cudaErrorInvalidValue;
       }
-      err = payload ? launch_global_r<K, true>(r, keys, payload, n, j_lo, k, stream)
-                    : launch_global_r<K, false>(r, keys, nullptr, n, j_lo, k, stream);
+      err = payload ? launch_global_r<K, true>(r, keys, payload, n, j_lo, k, done, stream)
+                    : launch_global_r<K, false>(r, keys, nullptr, n, j_lo, k, done, stream);
     } else if (plan[i] == 1 && i + 5 <= plan_len) {
       const int t = plan[i + 1], R = plan[i + 2], ng = plan[i + 3], np = plan[i + 4];
       i += 5;
@@ -446,8 +454,8 @@ int run_plan(void* keys_v, void* payload_v, int n, const int* plan, int plan_len
         tp.k[p] = static_cast<uint8_t>(plan[i++]);
         tp.qk[p] = static_cast<uint8_t>(plan[i++]);
       }
-      err = payload ? launch_tile_r<K, true>(R, keys, payload, n, t, tp, stream)
-                    : launch_tile_r<K, false>(R, keys, nullptr, n, t, tp, stream);
+      err = payload ? launch_tile_r<K, true>(R, keys, payload, n, t, tp, done, stream)
+                    : launch_tile_r<K, false>(R, keys, nullptr, n, t, tp, done, stream);
     } else {
       return cudaErrorInvalidValue;
     }
@@ -459,6 +467,11 @@ int run_plan(void* keys_v, void* payload_v, int n, const int* plan, int plan_len
 
 }  // namespace
 
+int tpubz::bitonic_run_i64(void* keys, void* payload, int n, const int* plan, int plan_len,
+                           int* launched, const int* done, cudaStream_t stream) {
+  return run_plan<int64_t>(keys, payload, n, plan, plan_len, launched, done, stream);
+}
+
 // keys (and payload, int32, or null for keys only): device pointers to n
 // contiguous elements, 16-byte aligned, n a power of two up to 2^20. Runs
 // the plan (a host array of plan_len ints) in place on `stream`, writes the
@@ -466,10 +479,14 @@ int run_plan(void* keys_v, void* payload_v, int n, const int* plan, int plan_len
 // an int (0 on success).
 extern "C" int tpubz_bitonic_run_i32(void* keys, void* payload, int n, const int* plan,
                                      int plan_len, int* launched, void* stream) {
-  return run_plan<int32_t>(keys, payload, n, plan, plan_len, launched, stream);
+  *launched = 0;
+  return run_plan<int32_t>(keys, payload, n, plan, plan_len, launched, nullptr,
+                           static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int tpubz_bitonic_run_i64(void* keys, void* payload, int n, const int* plan,
                                      int plan_len, int* launched, void* stream) {
-  return run_plan<int64_t>(keys, payload, n, plan, plan_len, launched, stream);
+  *launched = 0;
+  return tpubz::bitonic_run_i64(keys, payload, n, plan, plan_len, launched, nullptr,
+                                static_cast<cudaStream_t>(stream));
 }

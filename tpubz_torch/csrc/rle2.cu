@@ -38,7 +38,14 @@
 #include <climits>
 #include <cstdint>
 
+#include "block_scan.cuh"
+
 namespace {
+
+using tpubz::block_exclusive;
+using tpubz::Max;
+using tpubz::Min;
+using tpubz::Sum;
 
 constexpr int kThreads = 256;
 constexpr int kPer = 16;  // ranks a thread holds
@@ -47,44 +54,9 @@ constexpr int kScanThreads = 1024;
 constexpr int kBins = 258;
 constexpr unsigned kFull = 0xffffffffu;
 
-struct Max {
-  __device__ int operator()(int a, int b) const { return max(a, b); }
-};
-struct Min {
-  __device__ int operator()(int a, int b) const { return min(a, b); }
-};
-struct Sum {
-  __device__ int operator()(int a, int b) const { return a + b; }
-};
-
 // floor(log2(L+1)) digits for a run of L zeros; none for L <= 0
 __device__ __forceinline__ int num_digits(int run) {
   return run > 0 ? 31 - __clz(run + 1) : 0;
-}
-
-// Exclusive scan of v across the CTA (blockDim.x a multiple of 32, at most
-// 1024) under op, identity for the first thread; *total gets the CTA's
-// whole. `sh` holds 32 ints and is free again on return.
-template <typename Op>
-__device__ int block_exclusive(int v, int identity, Op op, int* sh, int* total) {
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5, nw = blockDim.x >> 5;
-  int incl = v;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const int o = __shfl_up_sync(kFull, incl, d);
-    if (lane >= d) incl = op(incl, o);
-  }
-  if (lane == 31) sh[w] = incl;
-  __syncthreads();
-  int before = identity, all = identity;
-  for (int p = 0; p < nw; ++p) {
-    if (p < w) before = op(before, sh[p]);
-    all = op(all, sh[p]);
-  }
-  __syncthreads();
-  const int prev = __shfl_up_sync(kFull, incl, 1);
-  *total = all;
-  return lane ? op(before, prev) : before;
 }
 
 // this thread's 16 ranks; positions at or past N read as 0

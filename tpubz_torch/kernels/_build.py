@@ -32,7 +32,7 @@ NVCC_FLAGS = [
 _P = ctypes.c_void_p
 # C entry points of the library: every pointer and the stream as c_void_p
 # (a bare Python int would be passed as a 32-bit int and cut the pointer).
-# Each returns cudaGetLastError() after its launch.
+# Each returns cudaGetLastError() after its launches.
 _INTS = ctypes.POINTER(ctypes.c_int)  # host int array, or an int out argument
 SIGNATURES = {
     # last, n, N, group, scratch, used, ranks, stream
@@ -42,6 +42,12 @@ SIGNATURES = {
     # keys, payload or None, n, plan, len(plan), launched (out), stream
     "tpubz_bitonic_run_i32": [_P, _P, ctypes.c_int, _INTS, ctypes.c_int, _INTS, _P],
     "tpubz_bitonic_run_i64": [_P, _P, ctypes.c_int, _INTS, ctypes.c_int, _INTS, _P],
+    # data, n, N, scratch, its bytes, pinned host int32 words, sort plan,
+    # len(plan), key, last, stats (out, 7 ints), stream
+    "tpubz_bwt_forward": [_P, ctypes.c_int, ctypes.c_int, _P, ctypes.c_int, _P, _INTS,
+                          ctypes.c_int, _P, _P, _INTS, _P],
+    # n, sizes (out, 3 ints: scratch bytes, pinned words, round cap)
+    "tpubz_bwt_sizes": [ctypes.c_int, _INTS],
 }
 
 _lock = threading.Lock()

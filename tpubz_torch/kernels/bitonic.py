@@ -48,12 +48,15 @@ MAX_REGS_LOG2 = 5
 MAX_TILE_PASSES = 128  # per tile launch, the kernel's TilePlan arrays
 MAX_GROUPS = 64
 
-# calls into the kernel library in this process (CPU calls are not counted)
+# calls of this module's wrappers into the kernel library in this process
+# (CPU calls are not counted)
 LAUNCHES = 0
-# the same calls by wrapper
+# sorts and pass runs on the card by kind: the same calls by wrapper, and the
+# sorts the BWT's library call ran (suffix_sort.bwt_forward: a 2op sort per
+# doubling round run, a 1op sort per block with ties)
 CALLS = {"bitonic_1op": 0, "bitonic_2op": 0, "stage_passes": 0}
 # CUDA launches of the two pass kernels (bitonic_tile, bitonic_global) that
-# those calls made
+# all of those made, a skipped round's empty launches included
 PASS_LAUNCHES = 0
 _launch_lock = threading.Lock()
 
@@ -299,6 +302,17 @@ def _launch(name, keys, payload, words):
         LAUNCHES += 1
         CALLS[name] += 1
         PASS_LAUNCHES += launched.value
+
+
+def count_sorts(two_op: int, one_op: int, pass_launches: int) -> None:
+    """Count sorts that another entry point of the library ran through the
+    plan runner (the BWT's rounds and its tied last column): CALLS and
+    PASS_LAUNCHES, not LAUNCHES, which counts this module's own calls."""
+    global PASS_LAUNCHES
+    with _launch_lock:
+        CALLS["bitonic_2op"] += two_op
+        CALLS["bitonic_1op"] += one_op
+        PASS_LAUNCHES += pass_launches
 
 
 def bitonic_1op(keys: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,7 @@
 """Where a level-9 stream's time goes on the card, route by route.
 
     python3 -m tpubz_torch.stage_probe [--mib 16] [--seed 2026] [--out FILE]
+                                       [--mode all|bwt_anatomy]
                                        [--parent DIR [--reps 1]]
 
 Needs a CUDA card: without one it exits with code 1. The functions take a
@@ -32,14 +33,26 @@ mixed corpus plus the edge blocks (``tpubz_torch.corpus``, as
 - ``chain``: the device microseconds of each kernel that one ``mtf_ranks``
   and one ``rle2_encode`` call launch on the corpus's first block, from
   ``torch.profiler``;
+- ``bwt_anatomy`` (alone with ``--mode bwt_anatomy``): of one
+  ``bwt_forward`` call on the corpus's first block, the device microseconds
+  and launches of each kernel (the BWT's own and the two bitonic pass
+  kernels) and per sort, from ``torch.profiler``; the same for one
+  ``bitonic_1op``, one ``bitonic_2op`` and one two-pass ``stage_passes``
+  call at 2^20; per block of the data the doubling rounds, the keys-only
+  sorts, the call's ms and the host's microseconds in it (enqueueing
+  rounds, waiting for a round's event); the host ms of the MTF and RLE2
+  stages after the library call and after the plain version; and for one device-only stream per stage, with
+  no profiler, the wall, the sum of each block's span on the card (CUDA
+  events before its first kernel and after its copies are enqueued) and the
+  share of the wall outside those spans;
 - ``turns``: with ``--parent``, from a fresh process of the parent's tree
   and of this one in the order parent, this, this, parent (``--reps``
-  times): ``mtf_ranks`` and ``rle2_encode`` ms on the corpus's first block
-  (CUDA events, 20 calls back to back) and their device time
-  (``torch.profiler``, one call), ``stages``, ``bwt_stages`` and
-  ``routes`` (two rounds), each turn with a fresh rig profile. The parent is
-  any checkout of the port, such as a ``git archive`` of an earlier commit
-  unpacked into a directory that ``.gitignore`` lists.
+  times): ``bwt_forward``, ``mtf_ranks`` and ``rle2_encode`` ms on the
+  corpus's first block (CUDA events, 20 calls back to back) and their
+  device time (``torch.profiler``, one call), ``stages``, ``bwt_stages``
+  and ``routes`` (two rounds), each turn with a fresh rig profile. The
+  parent is any checkout of the port, such as a ``git archive`` of an
+  earlier commit unpacked into a directory that ``.gitignore`` lists.
 """
 from __future__ import annotations
 
@@ -315,11 +328,13 @@ def _device_us(fn) -> dict:
         torch.cuda.synchronize()
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     by_name: dict = {}
+    counts: dict = {}
     for e in dev:
         by_name[e.name[:100]] = by_name.get(e.name[:100], 0.0) + e.time_range.end - e.time_range.start
+        counts[e.name[:100]] = counts.get(e.name[:100], 0) + 1
     return {"sum_us": sum(by_name.values()),
             "busy_us": _union_us((e.time_range.start, e.time_range.end) for e in dev),
-            "launches": len(dev), "kernels_us": by_name}
+            "launches": len(dev), "kernels_us": by_name, "kernels_launches": counts}
 
 
 def chain_profile(mib: int, seed: int) -> dict:
@@ -333,6 +348,114 @@ def chain_profile(mib: int, seed: int) -> dict:
     eob = used.sum() + 1
     return {"mtf": _device_us(lambda: mtf_ranks(last, n)),
             "rle2": _device_us(lambda: rle2_encode(ranks, n, eob))}
+
+
+def stream_spans(data: bytes, level: int, stage: str, device="cuda") -> dict:
+    """One device-only stream of ``stage`` with no profiler: its wall, the
+    sum of its blocks' spans on the card and the share of the wall outside
+    them. A span runs from an event recorded before the block's transform
+    to one recorded after its host copies are enqueued, both on the
+    encoder's stream: device time in which the block's work was open, so an
+    upper bound on the time the card was busy. On a CPU device the marks
+    are host clock readings."""
+    on_card = torch.device(device).type == "cuda"
+
+    def mark():
+        if not on_card:
+            return time.perf_counter()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    spans = []
+    saved = {name: getattr(DeviceBlockEncoder, name)
+             for name in ("transform", "transform_bwt", "fetch_async", "fetch_bwt_async")}
+
+    def opening(fn):
+        def wrap(self, *args):
+            spans.append([mark(), None])
+            return fn(self, *args)
+        return wrap
+
+    def closing(fn):
+        def wrap(self, *args):
+            out = fn(self, *args)
+            spans[-1][1] = mark()
+            return out
+        return wrap
+
+    with env(**DEVICE_ONLY[stage]):
+        api.compress(data, level, device=device)  # warm
+        try:
+            for name, fn in saved.items():
+                wrapper = opening if name.startswith("transform") else closing
+                setattr(DeviceBlockEncoder, name, wrapper(fn))
+            _, wall = _timed(lambda: api.compress(data, level, device=device), device)
+        finally:
+            for name, fn in saved.items():
+                setattr(DeviceBlockEncoder, name, fn)
+    span = sum(a.elapsed_time(b) if on_card else (b - a) * 1e3 for a, b in spans)
+    return {"stage": stage, "blocks": len(spans), "wall_ms": wall, "block_span_ms": span,
+            "outside_spans_share": 1 - span / wall}
+
+
+def bwt_anatomy(data: bytes) -> dict:
+    """Where one BWT call's device time goes (on the first 900,000 bytes of
+    ``data``), how many rounds each level-9 block of ``data`` runs, and how
+    much of a device-only stream's wall lies outside its blocks' spans on
+    the card."""
+    from .kernels import bitonic, suffix_sort
+
+    n = 900_000
+    padded = torch.zeros(block_n(9), dtype=torch.uint8, device="cuda")
+    padded[:n] = torch.frombuffer(bytearray(data[:n]), dtype=torch.uint8).to("cuda")
+    before = suffix_sort.ROUNDS_RUN
+    bwt_forward(padded, n)
+    rounds = suffix_sort.ROUNDS_RUN - before
+    call = _device_us(lambda: bwt_forward(padded, n))
+    sorts_us = sum(us for k, us in call["kernels_us"].items() if "bitonic" in k)
+    k64 = suffix_sort.round_keys(suffix_sort.seed_rank(padded[:n]), 3)
+    pos = torch.arange(k64.shape[0], dtype=torch.int32, device="cuda")
+    k32 = k64.to(torch.int32)
+    sorts = {
+        "bitonic_1op_i64": _device_us(lambda: bitonic.bitonic_1op(k64)),
+        "bitonic_2op_i64": _device_us(lambda: bitonic.bitonic_2op(k64, pos)),
+        "bitonic_2op_i32": _device_us(lambda: bitonic.bitonic_2op(k32, pos)),
+        "stage_passes_row2_i32": _device_us(lambda: bitonic.stage_passes(k32.clone(), [19, 18])),
+    }
+    enc = DeviceBlockEncoder(9, "cuda")
+    per_block = []
+    for blk, _ in _blocks(data, 9):
+        dev = enc.upload(blk)
+        c0 = (suffix_sort.ROUNDS_RUN, bitonic.CALLS["bitonic_1op"], dict(suffix_sort.HOST_US))
+        _, ms = _timed(lambda: bwt_forward(dev, blk.size), "cuda")
+        per_block.append({"n": int(blk.size), "rounds": suffix_sort.ROUNDS_RUN - c0[0],
+                          "one_op_sorts": bitonic.CALLS["bitonic_1op"] - c0[1], "call_ms": ms,
+                          "host_us": {k: v - c0[2][k] for k, v in suffix_sort.HOST_US.items()}})
+    # the host ms of the stages that follow the BWT, after the library call
+    # and after the plain version (many small torch ops, the host busy
+    # throughout), on the same blocks in turns
+    after: dict = {"call": [], "plain": []}
+    for blk, _ in list(_blocks(data, 9))[1:9]:
+        dev = enc.upload(blk)
+        for name, fn in (("call", bwt_forward), ("plain", suffix_sort.bwt_forward_ref)):
+            (_, last), _ = _timed(lambda: fn(dev, blk.size), "cuda")
+            (ranks, used), mtf_ms = _timed(lambda: mtf_ranks(last, blk.size), "cuda")
+            _, rle2_ms = _timed(lambda: rle2_encode(ranks, blk.size, used.sum() + 1), "cuda")
+            after[name].append({"mtf": mtf_ms, "rle2": rle2_ms})
+    return {
+        "stages_after_bwt_median_ms": {
+            name: {k: statistics.median(r[k] for r in rows) for k in ("mtf", "rle2")}
+            for name, rows in after.items()},
+        "block0_rounds": rounds,
+        "block0_call": call,
+        "block0_sort_us_per_round": sorts_us / rounds,
+        "block0_own_kernels_us": call["sum_us"] - sorts_us,
+        "sorts": sorts,
+        "per_block": per_block,
+        "rounds_median": statistics.median(b["rounds"] for b in per_block),
+        "streams": [stream_spans(data, 9, stage) for stage in ("full", "bwt")],
+    }
 
 
 # runs in a fresh process in either tree: only names both trees define
@@ -377,6 +500,8 @@ last = bwt_forward(padded, n0)[1]
 ranks, used = mtf_ranks(last, n0)
 ranks, eob = ranks.view(-1), used.sum() + 1
 out = {
+    "bwt_ms": ms(lambda: bwt_forward(padded, n0)),
+    "bwt_device": device_us(lambda: bwt_forward(padded, n0)),
     "mtf_ms": ms(lambda: mtf_ranks(last, n0)),
     "rle2_ms": ms(lambda: rle2_encode(ranks, n0, eob)),
     "mtf_device": device_us(lambda: mtf_ranks(last, n0)),
@@ -405,9 +530,10 @@ def _turn(tree: str, mib: int, seed: int) -> dict:
 
 def turns(parent: str, reps: int, mib: int, seed: int) -> list[dict]:
     """parent, this, this, parent, ``reps`` times, each a fresh process."""
+    order = (("parent", parent), ("this", ROOT), ("this", ROOT), ("parent", parent))
     out = []
     for _ in range(reps):
-        for name, tree in (("parent", parent), ("this", ROOT), ("this", ROOT), ("parent", parent)):
+        for name, tree in order:
             out.append({"tree": name, **_turn(tree, mib, seed)})
     return out
 
@@ -417,6 +543,7 @@ def main(argv=None) -> int:
     ap.add_argument("--mib", type=int, default=16)
     ap.add_argument("--seed", type=int, default=2026)
     ap.add_argument("--out")
+    ap.add_argument("--mode", choices=("all", "bwt_anatomy"), default="all")
     ap.add_argument("--parent")
     ap.add_argument("--reps", type=int, default=1)
     args = ap.parse_args(argv)
@@ -439,17 +566,19 @@ def main(argv=None) -> int:
         from .stream import rigprofile
 
         rigprofile.reset_memo()
-        result.update({
-            "bytes": len(data),
-            "chain": chain_profile(args.mib, args.seed),
-            "stages": stage_times(data, 9, "cuda"),
-            "bwt_stages": bwt_stage_times(data, 9, "cuda"),
-            "profile": [profile_stream(data, 9, "cuda", s) for s in ("full", "bwt")],
-            "window": window_sweep(data, 9, "cuda"),
-            "routes": route_rates(data, 9, "cuda"),
-            "hybrid": hybrid_sweep(data, 9, "cuda"),
-            "probation": probation_sweep(data, 9, "cuda"),
-        })
+        result["bytes"] = len(data)
+        result["bwt_anatomy"] = bwt_anatomy(data)
+        if args.mode == "all":
+            result.update({
+                "chain": chain_profile(args.mib, args.seed),
+                "stages": stage_times(data, 9, "cuda"),
+                "bwt_stages": bwt_stage_times(data, 9, "cuda"),
+                "profile": [profile_stream(data, 9, "cuda", s) for s in ("full", "bwt")],
+                "window": window_sweep(data, 9, "cuda"),
+                "routes": route_rates(data, 9, "cuda"),
+                "hybrid": hybrid_sweep(data, 9, "cuda"),
+                "probation": probation_sweep(data, 9, "cuda"),
+            })
         rigprofile.reset_memo()
     if args.parent:
         result["parent"] = os.path.abspath(args.parent)
