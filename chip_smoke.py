@@ -10,7 +10,9 @@ kernel against its plain
 PyTorch version at the level-9 shapes (tolerance 0: the codec is integer;
 MTF and RLE2 on the corpus's first block and the three edge blocks, RLE2
 also on random ranks with long zero runs; the BWT's library call, key and
-every lane of the last column, on the same four blocks),
+every lane of the last column, on the same four blocks; the radix sort
+under it on random 60-bit keys and on the keys of the corpus block's first
+two doubling rounds),
 checks the BWT on the card against the port's plain path on the CPU for
 real and edge blocks, and a short level-9 stream byte for byte, then drives
 level-9 multi-block encode through
@@ -37,13 +39,13 @@ the int32 rate of the card's CUDA cores (132 SMs x 64 lanes x 1.98 GHz,
 16.7 T/s; the data sheet's 67 TFLOP/s is the float32 rate: twice the
 lanes, and an FMA counted as two). The MTF and RLE2 launches are calls of their wrappers (three
 kernels each); the BWT's are calls of its wrapper (one library call a
-block: three kernels and a sort per doubling round, then the last column);
-the bitonic sorts' launches are the sorts run on the card, which on the
-main path are the BWT call's (a 2op sort per round, a 1op sort per block
-with ties);
-stage_passes' are the launches of the two pass kernels
-(bitonic_global, bitonic_tile) that it shares with the sorts, counted where
-the sorts launch them. The port imports neither tpubz nor jax, and the run
+block: per doubling round the keys with their histogram, the radix passes
+and the re-rank, then the last column); the radix sort's are the sorts run
+on the card, which on the main path are the BWT call's, one a round. The
+bitonic sorts (and stage_passes, the launches of the two pass kernels
+bitonic_global and bitonic_tile) left the main path when the BWT moved to
+the radix sort: their main-path launches are 0, and [path] fails if one
+ran. The port imports neither tpubz nor jax, and the run
 checks that neither was loaded. The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -76,10 +78,12 @@ def _say(phase, msg):
 
 
 def _zero_counts():
-    from tpubz_torch.kernels import bitonic, mtf, rle2, suffix_sort
+    from tpubz_torch.kernels import bitonic, mtf, radix, rle2, suffix_sort
 
     mtf.LAUNCHES = rle2.LAUNCHES = 0
     suffix_sort.LAUNCHES = suffix_sort.ROUNDS_RUN = suffix_sort.KERNEL_LAUNCHES = 0
+    suffix_sort.ACTIVE_SORTED = 0
+    radix.LAUNCHES = radix.SORTS = radix.PASS_LAUNCHES = 0
     bitonic.LAUNCHES = bitonic.PASS_LAUNCHES = 0
     bitonic.CALLS.update(dict.fromkeys(bitonic.CALLS, 0))
 
@@ -158,7 +162,7 @@ def _smoke(tmp):
     from tpubz_torch.block.encode import block_n
     from tpubz_torch.corpus import edge_blocks, mixed_corpus
     from tpubz_torch import native
-    from tpubz_torch.kernels import _build, bitonic, mtf, rle2, suffix_sort
+    from tpubz_torch.kernels import _build, bitonic, mtf, radix, rle2, suffix_sort
     from tpubz_torch.kernels.suffix_sort import bwt_forward
     from tpubz_torch.stage_probe import DEVICE_ONLY, env
 
@@ -193,16 +197,19 @@ def _smoke(tmp):
     rng = np.random.default_rng(SEED)
     chain = chain_kernels(padded, n0, edges, rng)
     chain["bwt"] = bwt_kernels(padded, n0, edges)
+    chain["radix"] = radix_kernels(padded, n0, rng)
 
     # the bitonic kernels against their plain versions at 2^20, exactly:
     # int32 keys in [0, 50), whose duplicates move payloads by the tie rule;
-    # the int64 keys of block 0's first doubling round (the main path's
-    # sorts); the TPU probe's stage cases
+    # the int64 keys of block 0's first doubling round, padded with
+    # INT64_MAX (the BWT once sorted its keys with them); the TPU probe's
+    # stage cases
     L = 1 << bitonic.MAX_LOG2
     k32 = torch.from_numpy(rng.integers(0, 50, L).astype(np.int32)).to(dev)
     p32 = torch.from_numpy(rng.permutation(L).astype(np.int32)).to(dev)
     r32 = torch.from_numpy(rng.integers(0, 1 << 30, L).astype(np.int32)).to(dev)
-    k64 = suffix_sort.round_keys(suffix_sort.seed_rank(padded[:n0]), 3)
+    k64 = torch.full((L,), torch.iinfo(torch.int64).max, dtype=torch.int64, device=dev)
+    k64[:n0] = suffix_sort.round_keys(padded[:n0], 0)
     pos = torch.arange(L, dtype=torch.int32, device=dev)
     # the TPU probe's cases (probe_pallas_pass.py:124-129): passes at row
     # distances (>= 2^10 there; global passes here, >= the 2^11 tile) and at
@@ -318,8 +325,10 @@ def _smoke(tmp):
         stream = tpubz_torch.compress(data, LEVEL, device="cuda")
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {"mtf": mtf.LAUNCHES, "rle2": rle2.LAUNCHES, "bwt": suffix_sort.LAUNCHES}
+    launches = {"mtf": mtf.LAUNCHES, "rle2": rle2.LAUNCHES, "bwt": suffix_sort.LAUNCHES,
+                "radix": radix.SORTS}
     rounds, bwt_kernel_launches = suffix_sort.ROUNDS_RUN, suffix_sort.KERNEL_LAUNCHES
+    active_sorted, radix_passes = suffix_sort.ACTIVE_SORTED, radix.PASS_LAUNCHES
     sort_calls = dict(bitonic.CALLS)
     pass_launches = bitonic.PASS_LAUNCHES
     blocks = tpubz_torch.stream.api.last_stream_stats["blocks"]
@@ -330,25 +339,27 @@ def _smoke(tmp):
             f"round_trips={'+'.join(ran)}")
 
     # the main path went through the kernels, without jax: every block ran
-    # the BWT's library call, its MTF and its RLE2; the call ran a 2op sort
-    # per doubling round (at least one a block), a 1op sort only for a
-    # block with tied rotations (the last one), and every sort its passes
+    # the BWT's library call, its MTF and its RLE2; the call ran a radix
+    # sort per doubling round (at least one a block) with all the passes
+    # the library gives a round, and no bitonic sort ran
+    n_passes = suffix_sort.call_sizes(1)[3]
     if min(launches.values()) < blocks:
-        raise AssertionError(f"BWT, MTF and RLE2 launches {launches} for {blocks} blocks")
-    if sort_calls["bitonic_2op"] != rounds or rounds < blocks or not (
-            1 <= sort_calls["bitonic_1op"] < blocks):
-        raise AssertionError(f"bitonic sorts {sort_calls}, {rounds} rounds for {blocks} blocks")
-    sorts_run = sort_calls["bitonic_1op"] + sort_calls["bitonic_2op"]
-    if pass_launches < sorts_run or bwt_kernel_launches < 3 * rounds + blocks:
-        raise AssertionError(f"{pass_launches} pass-kernel and {bwt_kernel_launches} BWT-kernel "
-                             f"launches for {sorts_run} sorts in {rounds} rounds")
+        raise AssertionError(f"BWT, MTF, RLE2 and radix launches {launches} for {blocks} blocks")
+    if launches["radix"] != rounds or rounds < blocks or radix_passes < n_passes * rounds:
+        raise AssertionError(f"{launches['radix']} radix sorts with {radix_passes} pass launches "
+                             f"for {rounds} rounds in {blocks} blocks")
+    if any(sort_calls.values()) or pass_launches or bwt_kernel_launches < 3 * rounds + blocks:
+        raise AssertionError(f"bitonic sorts {sort_calls} ({pass_launches} pass kernels) and "
+                             f"{bwt_kernel_launches} BWT-kernel launches in {rounds} rounds")
     _no_reference_modules()
     mb = len(data) / 1e6
     _say("path", f"blocks={blocks} bwt_launches={launches['bwt']} bwt_rounds={rounds} "
-            f"bwt_kernel_launches={bwt_kernel_launches} mtf_launches={launches['mtf']} "
+            f"bwt_active_rotations_sorted={active_sorted} "
+            f"bwt_kernel_launches={bwt_kernel_launches} radix_sorts={launches['radix']} "
+            f"radix_pass_launches={radix_passes} mtf_launches={launches['mtf']} "
             f"rle2_launches={launches['rle2']} "
             f"bitonic_wrapper_calls={bitonic.LAUNCHES} bitonic_sorts={sort_calls} "
-            f"pass_kernel_launches={pass_launches} MB={mb} seconds={dt} "
+            f"bitonic_pass_kernel_launches={pass_launches} MB={mb} seconds={dt} "
             f"MBps={mb / dt} tpubz_imported=False jax_imported=False")
 
     stage_bwt(tpubz_torch, data, stream)
@@ -356,6 +367,7 @@ def _smoke(tmp):
     files(tpubz_torch, short, got, tmp)
     _no_reference_modules()
 
+    # the bitonic sorts' main-path launches: 0 (checked above)
     sorts = [
         ("bitonic_1op", "tools/probe_pallas_sort.py:110", sort_calls["bitonic_1op"],
          sort_ms["bitonic_1op"]),
@@ -374,11 +386,12 @@ def _smoke(tmp):
         "plain_ms": chain[name]["plain_ms"],
         "bound_ms": chain[name]["bound"][0],
         "bound_by": chain[name]["bound"][1],
-        "library_ms": None,
+        "library_ms": chain[name].get("library_ms"),
     } for name, replaces in (("bwt", "tpubz/kernels/suffix_sort.py:50"),
+                             ("radix", "tpubz/kernels/suffix_sort.py:106"),
                              ("mtf", "tpubz/kernels/mtf_pallas.py:46"),
                              ("rle2", "tpubz/kernels/rle2.py:34"))}
-    print(json.dumps({"kernels": [rows["bwt"], rows["mtf"]] + [{
+    print(json.dumps({"kernels": [rows["bwt"], rows["radix"], rows["mtf"]] + [{
         "name": name,
         "route": "cuda",
         "source": "tpubz_torch/csrc/bitonic.cu",
@@ -475,12 +488,13 @@ def chain_kernels(padded, n0, edges, rng):
 def bwt_kernels(padded, n0, edges):
     """The BWT's library call against its plain version on the card, exactly
     (the key and every lane of the last column), on the corpus's first block
-    and each edge block; a 1op sort must run for the blocks with tied
-    rotations and for no other. Then the call's ms and the plain version's
-    on the corpus block (CUDA events; the call waits for each round's class
-    count, one round behind the card), its rounds, and the bounds of the
-    call and of each of its kernels."""
-    from tpubz_torch.kernels import bitonic, suffix_sort
+    and each edge block; each call must run one radix sort a round and no
+    bitonic sort. Then the call's ms and the plain version's on the corpus
+    block (CUDA events; the call waits for each round's state, one round
+    behind the card), its rounds and active rotations, and the bounds: what
+    any BWT of the block needs, what this formulation moves on this block's
+    data, and what each of its kernels moves."""
+    from tpubz_torch.kernels import bitonic, radix, suffix_sort
     from tpubz_torch.kernels.suffix_sort import bwt_forward, bwt_forward_ref
 
     dev, N = padded.device, padded.shape[0]
@@ -489,58 +503,123 @@ def bwt_kernels(padded, n0, edges):
         data = torch.zeros(N, dtype=torch.uint8, device=dev)
         data[: len(blk)] = torch.frombuffer(bytearray(blk), dtype=torch.uint8).to(dev)
         inputs[name] = (data, len(blk))
-    tied = {"one_byte_run", "all256"}
     err = 0
     for name, (data, n) in inputs.items():
-        before = (suffix_sort.LAUNCHES, suffix_sort.ROUNDS_RUN, bitonic.CALLS["bitonic_1op"])
+        before = (suffix_sort.LAUNCHES, suffix_sort.ROUNDS_RUN, suffix_sort.ACTIVE_SORTED,
+                  radix.SORTS, bitonic.PASS_LAUNCHES)
         key, last = bwt_forward(data, n)
         torch.cuda.synchronize()
         calls = suffix_sort.LAUNCHES - before[0]
         rounds = suffix_sort.ROUNDS_RUN - before[1]
-        one_op = bitonic.CALLS["bitonic_1op"] - before[2]
+        active = suffix_sort.ACTIVE_SORTED - before[2]
+        sorts = radix.SORTS - before[3]
         rkey, rlast = bwt_forward_ref(data, n)
         mismatches = int(key != rkey) + int((last != rlast).sum())
         e = max(abs(int(key) - int(rkey)), int((last.int() - rlast.int()).abs().max()))
         err = max(err, e)
         _say("kernel", f"bwt vs plain inputs={name} n={n} N={N} rounds={rounds} "
-                f"round_cap={suffix_sort.call_sizes(n)[2]} one_op_sorts={one_op} "
-                f"mismatches={mismatches} max_abs_err={e} tolerance=0")
+                f"active_rotations_sorted={active} round_cap={suffix_sort.call_sizes(n)[2]} "
+                f"radix_sorts={sorts} mismatches={mismatches} max_abs_err={e} tolerance=0")
         if mismatches:
             raise AssertionError(f"bwt_forward disagrees with its plain version on {name}")
-        if calls != 1 or one_op != (name in tied):
-            raise AssertionError(f"bwt_forward on {name}: {calls} calls, {one_op} 1op sorts")
-    before = suffix_sort.ROUNDS_RUN
+        if calls != 1 or sorts != rounds or bitonic.PASS_LAUNCHES != before[4]:
+            raise AssertionError(f"bwt_forward on {name}: {calls} calls, {sorts} radix sorts in "
+                                 f"{rounds} rounds, {bitonic.PASS_LAUNCHES - before[4]} "
+                                 f"bitonic launches")
+    before = (suffix_sort.ROUNDS_RUN, suffix_sort.ACTIVE_SORTED, suffix_sort.KERNEL_LAUNCHES,
+              radix.PASS_LAUNCHES)
     bwt_forward(padded, n0)
-    rounds = suffix_sort.ROUNDS_RUN - before
+    rounds = suffix_sort.ROUNDS_RUN - before[0]
+    active = suffix_sort.ACTIVE_SORTED - before[1]
+    launches = (suffix_sort.KERNEL_LAUNCHES - before[2]) + (radix.PASS_LAUNCHES - before[3])
     ms = _cuda_ms(lambda: bwt_forward(padded, n0), 20)
     plain_ms = _cuda_ms(lambda: bwt_forward_ref(padded, n0), 5)
     # what a BWT of these bytes needs, whatever the algorithm: the block read
-    # and the column and key written once, against the n log2 n compares of a
-    # comparison sort of its rotations. The compares this formulation does (a
-    # bitonic network per round) are printed beside it and are no bound.
-    P = suffix_sort.padded_length(n0)
+    # and the column and key written once, against the n log2 n compares of
+    # a comparison sort of its rotations
     bound = _bound(n0 + N + 8, n0 * math.log2(n0))
-    sorts_compares = rounds * len(bitonic.network(P.bit_length() - 1)) * P // 2
-    # each kernel alone: what it reads and writes once, one operation a lane
+    # what this formulation moves on this block: per active rotation and
+    # round, its key built (the list entry and two ranks read, 20 bytes; in
+    # round 0 five block bytes), each radix pass (16 bytes), the re-rank's
+    # two reads of the sorted key and its writes of rank, sa and the next
+    # list (28 bytes); then the last column (sa and the block read, the
+    # column written); one operation a key and pass
+    passes = suffix_sort.call_sizes(n0)[3]
+    formulation = _bound(active * (20 + 16 * passes + 28) + 5 * n0 + N + 8, active * passes)
     parts = {
-        "bwt_seed_keys": _bound(n0 + 12 * P, P),
-        "bwt_round_keys": _bound(2 * 4 * n0 + 12 * P, P),
-        "bwt_rerank_count+bwt_rerank": _bound(12 * n0 + 4 * n0, n0),
-        "bwt_last_column": _bound(n0 + 4 * n0 + N + 8, N),
+        "bwt_keys": _bound(active * 20, active * passes),
+        "radix_pass_full_width": _bound(16 * n0, n0),
+        "bwt_rank_tiles+bwt_rank_apply": _bound(active * 28, active),
+        "bwt_last_column": _bound(5 * n0 + N + 8, N),
     }
     _say("kernel", f"bwt N={N} n={n0} kernel_ms={ms} plain_ms={plain_ms} rounds={rounds} "
-            f"calls_per_block=1 bound_us={bound[0] * 1e3} bound_by={bound[1]} "
-            f"this_formulation_compares_int32_us={sorts_compares / INT32_OPS_PER_S * 1e6} "
+            f"active_rotations_sorted={active} launches_per_call={launches} calls_per_block=1 "
+            f"bound_us={bound[0] * 1e3} bound_by={bound[1]} (any algorithm) "
+            f"this_formulation_bound_us={formulation[0] * 1e3} "
+            f"this_formulation_bound_by={formulation[1]} "
             + " ".join(f"{k}_bound_us={v[0] * 1e3}" for k, v in parts.items())
             + " (CUDA events, inputs=corpus_block0)")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound": bound}
+
+
+def radix_kernels(padded, n0, rng):
+    """The radix sort against its plain version on the card, exactly:
+    random 60-bit keys at n = 900,000 and the keys of the corpus block's
+    doubling rounds 0 (all 900,000 rotations) and 1 (the BWT's own keys:
+    bits 20-59 sorted, the position below). Then on round 0's keys the
+    kernel's ms, the plain version's, torch.sort's (the yardstick, never
+    called by the port), the launches of one call and the bound: the keys
+    read once and written once, one operation a key and pass."""
+    from tpubz_torch.kernels import radix, suffix_sort
+
+    lo, hi = suffix_sort.KEY_LO, suffix_sort.KEY_HI
+    bits = radix.library_sizes(1)[1]
+    if bits != radix.DIGIT_BITS or suffix_sort.call_sizes(n0)[3] != len(radix.passes(lo, hi, bits)):
+        raise AssertionError(f"the library's {bits}-bit digits are not the plain version's "
+                             f"{radix.DIGIT_BITS} or not the BWT's")
+    block = padded[:n0]
+    inputs = {
+        "random60": torch.from_numpy(rng.integers(0, 1 << 60, n0, dtype=np.int64)).to(padded.device),
+        "round0_block0": suffix_sort.round_keys(block, 0),
+        "round1_block0": suffix_sort.round_keys(block, 1),
+    }
+    err = 0
+    for name, keys in inputs.items():
+        got = radix.radix_sort(keys, lo, hi)
+        ref = radix.radix_sort_ref(keys, lo, hi, bits)
+        torch.cuda.synchronize()
+        mismatches = int((got != ref).sum())
+        e = int((got - ref).abs().max())
+        err = max(err, e)
+        _say("kernel", f"radix vs plain inputs={name} n={keys.numel()} bits=[{lo},{hi}) "
+                f"digit_bits={bits} mismatches={mismatches} max_abs_err={e} tolerance=0")
+        if mismatches:
+            raise AssertionError(f"radix_sort disagrees with its plain version on {name}")
+    keys = inputs["round0_block0"]
+    n = keys.numel()
+    before = radix.PASS_LAUNCHES
+    radix.radix_sort(keys, lo, hi)
+    torch.cuda.synchronize()
+    launches = radix.PASS_LAUNCHES - before
+    passes = len(radix.passes(lo, hi, bits))
+    bound = _bound(16 * n, passes * n)
+    ms = _cuda_ms(lambda: radix.radix_sort(keys, lo, hi), 20)
+    plain_ms = _cuda_ms(lambda: radix.radix_sort_ref(keys, lo, hi, bits), 5)
+    library_ms = _cuda_ms(lambda: torch.sort(keys), 20)
+    _say("kernel", f"radix n={n} bits=[{lo},{hi}) digit_bits={bits} passes={passes} "
+            f"kernel_ms={ms} plain_ms={plain_ms} torch_sort_ms={library_ms} "
+            f"launches_per_call={launches} bound_us={bound[0] * 1e3} bound_by={bound[1]} "
+            f"(the same order as torch.sort: the keys are unique and in position order) "
+            f"(CUDA events, inputs=round0_block0)")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound": bound}
 
 
 def stage_bwt(tpubz_torch, data, stream):
     """The bwt stage, device-only, on the main path's data: the same bytes,
     the BWT's library call on every block and no MTF or RLE2 kernel (they
     lie off this stage)."""
-    from tpubz_torch.kernels import bitonic, mtf, rle2, suffix_sort
+    from tpubz_torch.kernels import bitonic, mtf, radix, rle2, suffix_sort
     from tpubz_torch.stage_probe import DEVICE_ONLY, env
 
     _zero_counts()
@@ -551,27 +630,29 @@ def stage_bwt(tpubz_torch, data, stream):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     st = dict(tpubz_torch.stream.api.last_stream_stats)
-    calls = dict(bitonic.CALLS)
     if got != stream:
         raise AssertionError("the bwt stage's stream differs from the full stage's")
     if st["stage"] != "bwt" or st["dev_blocks"] != st["blocks"]:
         raise AssertionError(f"not a device-only bwt stream: {st}")
-    if suffix_sort.LAUNCHES != st["blocks"] or calls["bitonic_2op"] < st["blocks"]:
-        raise AssertionError(f"{suffix_sort.LAUNCHES} BWT calls, bitonic sorts {calls} for "
-                             f"{st['blocks']} blocks")
+    if (suffix_sort.LAUNCHES != st["blocks"] or radix.SORTS != suffix_sort.ROUNDS_RUN
+            or bitonic.PASS_LAUNCHES):
+        raise AssertionError(f"{suffix_sort.LAUNCHES} BWT calls, {radix.SORTS} radix sorts in "
+                             f"{suffix_sort.ROUNDS_RUN} rounds, {bitonic.PASS_LAUNCHES} bitonic "
+                             f"launches for {st['blocks']} blocks")
     if mtf.LAUNCHES or rle2.LAUNCHES:
         raise AssertionError(f"{mtf.LAUNCHES} MTF and {rle2.LAUNCHES} RLE2 launches on the bwt stage")
     mb = len(data) / 1e6
     _say("stage_bwt", f"blocks={st['blocks']} stream==path_stream "
          f"bwt_launches={suffix_sort.LAUNCHES} bwt_rounds={suffix_sort.ROUNDS_RUN} "
-         f"bitonic_sorts={calls} pass_kernel_launches={bitonic.PASS_LAUNCHES} "
-         f"mtf_launches=0 rle2_launches=0 MB={mb} seconds={dt} MBps={mb / dt}")
+         f"radix_sorts={radix.SORTS} radix_pass_launches={radix.PASS_LAUNCHES} "
+         f"bitonic_pass_kernel_launches=0 mtf_launches=0 rle2_launches=0 MB={mb} seconds={dt} "
+         f"MBps={mb / dt}")
 
 
 def hybrid(tpubz_torch, data, stream, tmp):
     """The default routing (hybrid CPU pool, stage from a fresh profile) on
     the main path's data, then compress_cpu on the same data."""
-    from tpubz_torch.kernels import bitonic, mtf, rle2, suffix_sort
+    from tpubz_torch.kernels import mtf, radix, rle2, suffix_sort
     from tpubz_torch.stage_probe import env
     from tpubz_torch.stream import rigprofile
 
@@ -599,7 +680,7 @@ def hybrid(tpubz_torch, data, stream, tmp):
     _say("hybrid", f"blocks={st['blocks']} stage={st['stage']} dev_blocks={st['dev_blocks']} "
          f"cpu_blocks={st['cpu_blocks']} cpu_workers={st['cpu_workers']} window={st['window']} "
          f"stream==path_stream bwt_launches={suffix_sort.LAUNCHES} "
-         f"bitonic_sorts={dict(bitonic.CALLS)} "
+         f"radix_sorts={radix.SORTS} "
          f"mtf_launches={mtf.LAUNCHES} rle2_launches={rle2.LAUNCHES} MB={mb} seconds={dt} "
          f"MBps={mb / dt} compress_cpu_seconds={cpu_dt} compress_cpu_MBps={mb / cpu_dt} "
          f"cpu_count={os.cpu_count()}")

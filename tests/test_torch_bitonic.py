@@ -22,7 +22,7 @@ import jax.numpy as jnp
 import torch
 
 from tpubz.hostref.bwt import bwt_encode
-from tpubz_torch.kernels import bitonic, suffix_sort
+from tpubz_torch.kernels import bitonic, radix, suffix_sort
 from tpubz_torch.kernels.suffix_sort import bwt_forward
 
 # the test workers share the host's cores: keep torch's intra-op pool small
@@ -154,39 +154,39 @@ def test_inputs_are_checked_and_cpu_calls_are_not_counted():
         bitonic.stage_passes(k, [-1])
 
 
-def test_bwt_forward_sorts_only_through_bitonic(monkeypatch):
-    """bwt_forward's doubling rounds go through bitonic_2op and its last
-    column through one bitonic_1op, with torch.sort out of reach; the
-    module does not name torch.sort at all."""
-    assert "torch.sort" not in inspect.getsource(suffix_sort)
-    calls = {"1op": 0, "2op": 0}
+def test_bwt_forward_sorts_only_through_radix(monkeypatch):
+    """bwt_forward's doubling rounds go through radix_sort_ref, one sort a
+    round, with torch.sort and the bitonic sorts out of reach; the module
+    names neither torch.sort nor the bitonic sorts."""
+    source = inspect.getsource(suffix_sort)
+    assert "torch.sort" not in source and "bitonic" not in source
+    calls = []
 
-    def counted(name, fn):
-        def wrap(*args):
-            calls[name] += 1
-            return fn(*args)
-        return wrap
+    def counted(keys, *args):
+        calls.append(keys.numel())
+        return radix.radix_sort_ref(keys, *args)
 
     def no_sort(*args, **kwargs):
-        raise AssertionError("torch.sort called")
+        raise AssertionError("torch.sort or a bitonic sort called")
 
-    monkeypatch.setattr(suffix_sort, "bitonic_1op", counted("1op", bitonic.bitonic_1op))
-    monkeypatch.setattr(suffix_sort, "bitonic_2op", counted("2op", bitonic.bitonic_2op))
+    monkeypatch.setattr(suffix_sort, "radix_sort_ref", counted)
     monkeypatch.setattr(torch, "sort", no_sort)
-    c = b"mississippi banana " * 20
+    for name in ("bitonic_1op", "bitonic_2op", "bitonic_1op_ref", "bitonic_2op_ref"):
+        monkeypatch.setattr(bitonic, name, no_sort)
+    c = b"mississippi banana " * 20 + b"!"
     data = torch.zeros(512, dtype=torch.uint8)
     data[: len(c)] = torch.frombuffer(bytearray(c), dtype=torch.uint8)
     key, last = bwt_forward(data, len(c))
     hkey, hlast = bwt_encode(np.frombuffer(c, np.uint8))
     assert int(key) == hkey and np.array_equal(last.numpy()[: len(c)], hlast)
-    assert calls["1op"] == 1 and calls["2op"] >= 2
+    assert len(calls) >= 2 and calls[0] == len(c) and all(m < len(c) for m in calls[1:])
 
 
 @pytest.mark.parametrize("n", [2, 3, 1024, 1025, 5000])
 def test_bwt_forward_at_padding_edges(n):
-    """n at and just past a power of two (P = n, and P = 2n - 2 with almost
-    half of it INT64_MAX padding): key and last column equal the host
-    oracle, pad lanes zero. Bit-exact."""
+    """n at and just past a power of two, in a buffer with pad lanes: key
+    and last column equal the host oracle, pad lanes zero, in no more
+    rounds than the cap. Bit-exact."""
     rng = np.random.default_rng(n)
     c = rng.integers(0, 3, n, dtype=np.uint8)
     data = torch.zeros(n + 7, dtype=torch.uint8)
@@ -196,7 +196,8 @@ def test_bwt_forward_at_padding_edges(n):
     assert int(key) == hkey
     assert np.array_equal(last.numpy()[:n], hlast)
     assert not last.numpy()[n:].any()
-    assert suffix_sort.padded_length(n) == 1 << (n - 1).bit_length()
+    rounds = sum(1 for _ in suffix_sort._doubling(data[:n]))
+    assert 1 <= rounds <= suffix_sort.round_cap(n)
 
 
 # (tile_log2, regs_log2); a 2^14 tile takes 2^5 registers

@@ -1,17 +1,19 @@
-"""The decomposition of the BWT's library call (csrc/bwt.cu), emulated in
+"""The BWT's library call (csrc/bwt.cu on csrc/radix.cuh), emulated in
 numpy on the CPU with the kernels' index math, against tpubz's bwt_forward
 and the port's plain version.
 
-The CUDA kernels run only on the card. Here each kernel is run CTA by CTA
-and thread by thread as its source writes it (the seed keys from six cyclic
-bytes, the round keys with the shift reduced mod n, the tile counts, the
-re-rank with every CTA adding up the counts before it, the per-round state
-slots), with small tiles (16-64 lanes) so that classes cross many of them,
-and the host's loop with its one-round-ahead schedule, round cap and both
-last-column routes. The sort between the kernels is numpy's, with the order
-of equal keys shuffled: the network's order on ties is not part of any
-kernel's contract. Every comparison is exact: tolerance 0.
+The CUDA kernels run only on the card. tests/torch_bwt_emulation.py runs
+each of them CTA by CTA as its source writes it (the round's keys and their
+histogram, every radix pass with its tile tickets and decoupled look-back,
+the re-rank's tile aggregates and its group-start ranks, slots and
+compaction, the per-round state record and the pinned words), with small
+tiles (16-64 keys) and 4-bit digits so that classes and digit runs cross
+many tiles, CTAs stepped in a random order, and the host's loop with its
+one-round-ahead schedule and round cap; then the last column from sa. Every
+comparison is exact: tolerance 0.
 """
+import functools
+
 import numpy as np
 import pytest
 
@@ -22,14 +24,18 @@ import torch
 from tpubz.hostref.bwt import bwt_encode
 from tpubz.kernels import suffix_sort as jsort
 from tpubz_torch.kernels import suffix_sort
-from tpubz_torch.kernels.suffix_sort import bwt_forward, bwt_forward_ref, padded_length
+from tpubz_torch.kernels.suffix_sort import bwt_forward, bwt_forward_ref
+
+from torch_bwt_emulation import (MAX_ROUNDS, NoFixpoint, Shape, emulate_bwt, passes_of,
+                                 round_cap, KEY_HI, KEY_LO)
 
 torch.set_num_threads(2)
 
 N = 2304  # 9 chunks of 256: one jit shape for every case
-PAD_KEY = np.iinfo(np.int64).max
 MAX_LOG2 = 20
-STATE_SLOTS = 24  # the emulated state record: one slot per round
+# radix tiles of 16, 32 and 64 keys and re-rank tiles of 16, 32 and 64,
+# 4-bit digits: 10 passes a round
+SHAPES = [Shape(2, 4, 2, 4, 4, 4), Shape(2, 8, 2, 4, 8, 4), Shape(2, 8, 4, 4, 8, 8)]
 
 _rng = np.random.default_rng(20261018)
 _text = (b"the quick brown fox jumps over the lazy dog; " * 40
@@ -75,206 +81,30 @@ def _pad(c: bytes) -> np.ndarray:
     return p
 
 
-# ------------------------------------------------------------ the kernels
-
-
-def _wrap(i, k, n):
-    """(i + k) mod n for 0 <= i < n, 0 <= k < n, as the kernels write it."""
-    assert 0 <= k < n
-    j = i + k
-    return np.where(j >= n, j - n, j)
-
-
-def seed_keys(block, n, P):
-    keys = np.full(P, PAD_KEY, np.int64)
-    for i in range(n):
-        packed, j = 0, i
-        for q in range(6):
-            packed = (packed << (16 if q == 3 else 8)) | int(block[j])
-            j = 0 if j + 1 == n else j + 1
-        keys[i] = packed
-    return keys, np.arange(P, dtype=np.int32)
-
-
-def round_keys(rank, n, P, k):
-    keys = np.full(P, PAD_KEY, np.int64)
-    i = np.arange(n)
-    keys[:n] = (rank[:n].astype(np.int64) << 32) | rank[_wrap(i, k, n)].astype(np.int64)
-    return keys, np.arange(P, dtype=np.int32)
-
-
-def sort_2op(keys, payload, rng):
-    """An ascending sort that leaves equal keys in an arbitrary order."""
-    order = np.lexsort((rng.permutation(keys.size), keys))
-    return keys[order], payload[order]
-
-
-def _load_flags(skey, base, n, per):
-    """load_flags: one thread's `per` lanes from base on."""
-    f = np.zeros(per, np.int64)
-    prev = skey[base - 1] if 0 < base <= n else 0
-    for q in range(per):
-        if base + q < n:
-            f[q] = int(skey[base + q] != prev)
-            prev = skey[base + q]
-    if base == 0:
-        f[0] = 0
-    return f
-
-
-def rerank_count(skey, n, tile, per):
-    tiles = -(-n // tile)
-    counts = np.zeros(tiles, np.int64)
-    for b in range(tiles):
-        for t in range(tile // per):
-            counts[b] += _load_flags(skey, b * tile + t * per, n, per).sum()
-    return counts
-
-
-def rerank(skey, order, n, counts, rnd, distinct, done, rank, tile, per, force_write=False):
-    """bwt_rerank, CTA by CTA. Returns how often each rank slot was written
-    and the classes it would have written at a stall (None otherwise)."""
-    writes = np.zeros(n, np.int64)
-    would = np.full(n, -1, np.int64)
-    if rnd > 0 and done[rnd - 1]:
-        return writes, None
-    prev_distinct = distinct[rnd - 1] if rnd > 0 else None
-    for b in range(counts.size):
-        before = counts[:b].sum()
-        classes = counts.sum() + 1
-        stall = rnd > 0 and classes == prev_distinct
-        excl = before
-        for t in range(tile // per):
-            base = b * tile + t * per
-            f = _load_flags(skey, base, n, per)
-            cls = excl
-            for q in range(per):
-                if base + q < n:
-                    cls += f[q]
-                    would[order[base + q]] = cls
-                    if not stall or force_write:
-                        rank[order[base + q]] = cls
-                        writes[order[base + q]] += 1
-            excl += f.sum()
-    # block 0, thread 0, after every CTA has read slot rnd - 1
-    distinct[rnd] = classes
-    done[rnd] = int(classes == n or stall)
-    return writes, (would if stall else None)
-
-
-def last_column(block, rank, n, size):
-    last = np.full(size, 255, np.uint8)  # torch.empty: every lane must be written
-    writes = np.zeros(size, np.int64)
-    for j in range(size):
-        if j >= n:
-            last[j] = 0
-            writes[j] += 1
-        else:
-            at = rank[_wrap(j, 1 % n, n)]
-            last[at] = block[j]
-            writes[at] += 1
-    assert (writes == 1).all()
-    return int(rank[0]), last
-
-
-def tie_route(block, rank, n, P, size):
-    j = np.arange(n)
-    keys = np.full(P, PAD_KEY, np.int64)
-    keys[:n] = (rank[_wrap(j, 1 % n, n)].astype(np.int64) << MAX_LOG2) | j
-    key = int((rank[:n] < rank[0]).sum())
-    col = np.sort(keys)
-    last = np.zeros(size, np.uint8)
-    last[:n] = block[col[:n] & ((1 << MAX_LOG2) - 1)]
-    return key, last
-
-
-# --------------------------------------------------------------- the host
-
-
-class NoFixpoint(Exception):
-    pass
-
-
-def round_cap(n: int) -> int:
-    """One more than the most doubling rounds a block of n bytes can run:
-    round r compares 3 * 2^(r+1) bytes, and once that covers n the next
-    round must stall."""
-    c = 0
-    while (3 << c) < n:
-        c += 1
-    return c + 2
-
-
-def emulate(c: bytes, size=N, tile=32, per=4, seed=0, cap=None, force_write=False):
-    """tpubz_bwt_forward's loop. Returns key, last and a record of the run."""
-    block = np.frombuffer(c, np.uint8)
-    n = block.size
-    P = padded_length(n)
-    cap = round_cap(n) if cap is None else cap
-    rng = np.random.default_rng(seed)
-    rank = np.full(P, -7, np.int32)
-    distinct = np.full(STATE_SLOTS, -99, np.int64)
-    done = np.full(STATE_SLOTS, -99, np.int64)
-    log = {"rounds_enqueued": 0, "skipped": 0, "stalls": []}
-
-    def enqueue_round(r):
-        log["rounds_enqueued"] += 1
-        if r > 0 and done[r - 1]:
-            # every kernel of the round returns at once
-            before = (rank.copy(), distinct.copy(), done.copy())
-            writes, _ = rerank(None, None, n, np.zeros(0), r, distinct, done, rank, tile, per)
-            assert not writes.any()
-            assert all(np.array_equal(a, b) for a, b in zip(before, (rank, distinct, done)))
-            log["skipped"] += 1
-            return
-        if r == 0:
-            keys, pos = seed_keys(block, n, P)
-        else:
-            keys, pos = round_keys(rank, n, P, (3 << r) % n)
-        skey, order = sort_2op(keys, pos, rng)
-        assert (skey[n:] == PAD_KEY).all() and (skey[:n] < PAD_KEY).all()
-        counts = rerank_count(skey, n, tile, per)
-        old = rank[:n].copy()
-        writes, would = rerank(skey, order, n, counts, r, distinct, done, rank, tile, per,
-                               force_write)
-        if would is None:
-            assert (writes == 1).all()  # every rank slot exactly once
-        else:
-            assert (writes == (1 if force_write else 0)).all()
-            log["stalls"].append((old, would))
-
-    enqueue_round(0)
-    r, prev = 0, -1
-    while True:
-        ahead = r + 1 < cap
-        if ahead:
-            enqueue_round(r + 1)
-        d = int(distinct[r])  # the pinned word after round r's event
-        if d == n or d == prev:
-            break
-        if not ahead:
-            raise NoFixpoint(r)
-        prev, r = d, r + 1
-    log.update(rounds=r + 1, distinct=d)
-    assert (rank[n:] == -7).all()  # pad lanes never reach rank
-    if d == n:
-        key, last = last_column(block, rank, n, size)
-        log["route"] = "permutation"
-        log["tie_route"] = tie_route(block, rank, n, P, size)
-    else:
-        key, last = tie_route(block, rank, n, P, size)
-        log["route"] = "ties"
-    return key, last, log
-
-
 # --------------------------------------------------------------- the tests
+
+
+@functools.lru_cache(maxsize=None)
+def _emulated(case: str, shape: int, seed: int = 0):
+    return emulate_bwt(CASES[case], N, SHAPES[shape], seed=shape + seed)
+
+
+def _plain_rounds(c: bytes):
+    """Per round of the plain version: (active rotations sorted, classes of
+    all n rotations after it, rotations left in classes of size >= 2)."""
+    block = torch.frombuffer(bytearray(c), dtype=torch.uint8)
+    rounds = []
+    for _, keys, rank, _ in suffix_sort._doubling(block):
+        _, counts = rank.unique(return_counts=True)
+        rounds.append((keys.numel(), counts.numel(), int(counts[counts > 1].sum())))
+    return rounds
 
 
 @pytest.mark.parametrize("case", CASE_IDS)
 def test_emulated_call_matches_tpubz_and_plain(case):
     """Key and every lane of last equal tpubz's bwt_forward (jit on the CPU),
     the port's plain version and the host oracle, for three tile shapes and
-    tie orders; pad lanes are zero; the rounds stay within the cap."""
+    CTA orders; pad lanes are zero; the rounds stay within the cap."""
     c = CASES[case]
     n = len(c)
     jkey, jlast = _jax_bwt(jnp.asarray(_pad(c)), jnp.int32(n))
@@ -282,8 +112,8 @@ def test_emulated_call_matches_tpubz_and_plain(case):
     hkey, hlast = bwt_encode(np.frombuffer(c, np.uint8))
     assert int(rkey) == int(jkey) == hkey
     assert np.array_equal(rlast.numpy(), np.asarray(jlast))
-    for tile, per, seed in ((16, 2, 0), (32, 4, 1), (64, 8, 2)):
-        key, last, log = emulate(c, tile=tile, per=per, seed=seed)
+    for shape in range(len(SHAPES)):
+        key, last, log = _emulated(case, shape)
         assert key == hkey
         assert np.array_equal(last, np.asarray(jlast))
         assert np.array_equal(last[:n], hlast) and not last[n:].any()
@@ -302,49 +132,118 @@ def test_plain_version_is_the_cpu_path(case):
 
 
 @pytest.mark.parametrize("case", CASE_IDS)
-def test_one_round_ahead_schedule(case):
+def test_one_round_ahead_schedule(case, monkeypatch):
     """The host enqueues at most one round more than it runs; that round's
-    kernels, gated by the slot of the round before, change nothing (checked
-    inside the emulation); the stop rule is the plain version's."""
+    kernels, gated by the state of the round before, write nothing (checked
+    inside the emulation); the rounds and each round's active count are the
+    plain version's."""
     c = CASES[case]
     n = len(c)
-    _, _, log = emulate(c)
+    _, _, log = _emulated(case, 1)
     assert log["rounds_enqueued"] - log["rounds"] == log["skipped"]
     assert log["skipped"] == (1 if log["rounds"] < round_cap(n) else 0)
-    assert log["route"] == ("permutation" if log["distinct"] == n else "ties")
-    # the plain version's rounds: count its 2op sorts
-    calls = []
-    orig = suffix_sort.bitonic_2op
-    suffix_sort.bitonic_2op = lambda k, p: calls.append(1) or orig(k, p)
-    try:
-        bwt_forward_ref(torch.from_numpy(_pad(c)), n)
-    finally:
-        suffix_sort.bitonic_2op = orig
-    assert log["rounds"] == len(calls)
+    sorted_sizes = []
+    orig = suffix_sort.radix_sort_ref
+
+    def counted(keys, *args):
+        sorted_sizes.append(keys.numel())
+        return orig(keys, *args)
+
+    monkeypatch.setattr(suffix_sort, "radix_sort_ref", counted)
+    bwt_forward_ref(torch.from_numpy(_pad(c)), n)
+    assert log["m"] == sorted_sizes
+
+
+@pytest.mark.parametrize("case", CASE_IDS)
+def test_state_record_and_pinned_words(case):
+    """Each round's pinned words (the next round's active count, the classes
+    of all n rotations, the split flag) are the plain version's; every slot
+    of an active class is written exactly once a round; round 0 sorts all n
+    rotations."""
+    c = CASES[case]
+    _, _, log = _emulated(case, 0)
+    plain = _plain_rounds(c)
+    assert log["m"][0] == len(c) and len(plain) == log["rounds"]
+    before = 1  # round 0 starts from one class
+    for r, (words, (m, classes, left)) in enumerate(zip(log["pinned"], plain)):
+        assert log["m"][r] == m
+        assert list(words) == [left, classes, int(classes > before)]
+        writes = log["slot_writes"][r]
+        assert set(np.unique(writes)) <= {0, 1} and writes.sum() == m
+        before = classes
+    *running, final = log["pinned"]
+    assert all(w[0] > 0 and w[2] == 1 for w in running)
+    assert final[0] == 0 or final[2] == 0
+
+
+@pytest.mark.parametrize("case", ["n1", "n257", "n2049", "near_periodic", "period64_flip", "text"])
+def test_ctas_past_the_active_count_exit(case):
+    """The grids are sized for n; in each round only the CTAs below the
+    round's active count work (histogram and every pass), the tickets of
+    each pass are 0 .. tiles(m) - 1, and look-back chains crossed tiles."""
+    c = CASES[case]
+    shape = SHAPES[0]
+    _, _, log = _emulated(case, 0)
+    rl = log["radix"]
+    launches = 1 + len(passes_of(KEY_LO, KEY_HI, shape.digit_bits))
+    assert len(rl.working) == launches * log["rounds"]
+    for r, m in enumerate(log["m"]):
+        for k in range(launches):
+            assert rl.launched[r * launches + k] == shape.tiles(len(c))
+            assert rl.working[r * launches + k] == shape.tiles(m)
+    assert all(sorted(t) == list(range(len(t))) for t in rl.tickets)
+    if len(c) > shape.tile:
+        assert rl.lookback_steps > 0
 
 
 @pytest.mark.parametrize("case", PERIODIC)
 def test_stall_round_rerank_equals_old_rank(case):
-    """A round that leaves the class count unchanged would write, lane for
-    lane, the rank it found: skipping the write and making it agree."""
+    """A round in which no class splits (the periodic fixpoint) writes, lane
+    for lane, the rank it found, and keeps every rotation active; a block
+    that stops after round 0 is one byte repeated (a single class)."""
     c = CASES[case]
-    key, last, log = emulate(c)
-    assert log["route"] == "ties" and len(log["stalls"]) == 1
-    old, would = log["stalls"][0]
-    assert np.array_equal(old, would)
-    fkey, flast, flog = emulate(c, force_write=True)
-    assert (fkey, flog["rounds"]) == (key, log["rounds"]) and np.array_equal(flast, last)
+    _, _, log = _emulated(case, 0)
+    assert log["pinned"][-1][2] == 0  # no split
+    assert log["pinned"][-1][0] == log["m"][-1]  # no rotation left alone
+    if log["rounds"] == 1:
+        assert len(set(c)) == 1 and not log["rank"].any()
+    else:
+        assert np.array_equal(log["rank_before"][-1], log["rank"])
 
 
 @pytest.mark.parametrize("case", [c for c in CASE_IDS if c not in PERIODIC])
-def test_permutation_route_equals_sort_route(case):
-    """With every rotation its own class, the scatter through rank gives the
-    key and the column of the keys-only sort."""
+def test_last_column_from_sa_equals_the_scatter_through_rank(case):
+    """With every rotation its own class, sa is rank's inverse, and the
+    gather through sa gives the key and the column of the scatter
+    last[rank[(j + 1) mod n]] = block[j]."""
     c = CASES[case]
-    key, last, log = emulate(c)
-    assert log["route"] == "permutation" and log["distinct"] == len(c)
-    tkey, tlast = log["tie_route"]
-    assert key == tkey and np.array_equal(last, tlast)
+    n = len(c)
+    key, last, log = _emulated(case, 0)
+    rank, sa = log["rank"], log["sa"]
+    assert log["pinned"][-1][0] == 0 and log["pinned"][-1][1] == n
+    assert np.array_equal(sa[rank], np.arange(n))
+    scattered = np.zeros(n, np.uint8)
+    scattered[rank[(np.arange(n) + 1) % n]] = np.frombuffer(c, np.uint8)
+    assert np.array_equal(last[:n], scattered) and key == rank[0]
+
+
+@pytest.mark.parametrize("case", PERIODIC)
+def test_any_order_inside_a_tied_class_gives_the_column(case):
+    """Tied classes are identical rotations: sa rotated inside each class
+    gives the same last column, and every class keeps its slots."""
+    c = CASES[case]
+    n = len(c)
+    block = np.frombuffer(c, np.uint8)
+    key, last, log = _emulated(case, 0)
+    rank, sa = log["rank"], log["sa"]
+    assert np.array_equal(rank[sa], np.maximum.accumulate(np.where(
+        np.r_[True, rank[sa][1:] != rank[sa][:-1]], np.arange(n), 0)))
+    shuffled = sa.copy()
+    for g in np.unique(rank):
+        slots = np.nonzero(rank[sa] == g)[0]
+        shuffled[slots] = np.roll(sa[slots], 1)
+    assert not np.array_equal(shuffled, sa)
+    assert np.array_equal(block[(shuffled + n - 1) % n], last[:n])
 
 
 @pytest.mark.parametrize("case", ["near_periodic", "period64_flip", "text"])
@@ -352,39 +251,41 @@ def test_round_cap_raises_short_of_a_fixpoint(case):
     """A cap below the rounds a block needs ends the loop with an error and
     no speculative round past it; the real cap is never reached."""
     c = CASES[case]
-    _, _, log = emulate(c)
+    _, _, log = _emulated(case, 1)
     assert 2 <= log["rounds"] < round_cap(len(c))
     with pytest.raises(NoFixpoint):
-        emulate(c, cap=log["rounds"] - 1)
-    _, _, tight = emulate(c, cap=log["rounds"])
+        emulate_bwt(c, N, SHAPES[1], cap=log["rounds"] - 1)
+    _, _, tight = emulate_bwt(c, N, SHAPES[1], cap=log["rounds"])
     assert tight["rounds_enqueued"] == tight["rounds"] == log["rounds"]
 
 
 @pytest.mark.parametrize("n", [1, 2, 3, 4, 6, 7, 100, 1 << 10, 900_000, 1 << 20])
 def test_round_cap_covers_n_and_fits_the_state_record(n):
-    """The emulated cap covers n (3 * 2^(cap-2) >= n, the round after
-    stalls), is the least that does, and fits the state's slots. The
-    library's own sizes are held to the same on the card
-    (tests/test_torch_cuda.py)."""
+    """The cap covers n (5 * 2^(cap-2) >= n, the round after leaves no
+    rotation or splits no class), is the least that does, fits the state's
+    slots, and is the plain version's. The library's own sizes are held to
+    the same on the card (tests/test_torch_cuda.py)."""
     cap = round_cap(n)
-    assert 3 << (cap - 2) >= n and (cap == 2 or 3 << (cap - 3) < n)
-    assert cap <= STATE_SLOTS
+    assert 5 << (cap - 2) >= n and (cap == 2 or 5 << (cap - 3) < n)
+    assert cap <= MAX_ROUNDS and cap == suffix_sort.round_cap(n)
 
 
-def test_kernel_source_sorts_only_through_the_bitonic_runner():
-    """csrc/bwt.cu reaches the sorts through the shared header and uses no
-    library's sort or scan; the wrapper keeps no copy of its layout."""
+def test_kernel_source_sorts_only_through_radix():
+    """csrc/bwt.cu sorts only through csrc/radix.cuh's passes and names no
+    library sort or scan and no bitonic runner; the wrapper keeps no copy of
+    its layout and calls no torch sort."""
     import inspect
     import os
 
     from tpubz_torch.kernels import _build
 
     src = open(os.path.join(_build.CSRC_DIR, "bwt.cu")).read()
-    assert '#include "bitonic.cuh"' in src and "tpubz::bitonic_run_i64" in src
-    for banned in ("cub::", "thrust::", "#include <cub", "#include <thrust"):
+    assert '#include "radix.cuh"' in src and "tpubz::radix::enqueue_passes" in src
+    for banned in ("cub::", "thrust::", "#include <cub", "#include <thrust", "bitonic"):
         assert banned not in src
     wrapper = inspect.getsource(suffix_sort)
     assert "tpubz_bwt_sizes" in wrapper and "torch.sort" not in wrapper
+    assert "bitonic" not in wrapper
 
 
 def test_cpu_call_edges():

@@ -14,7 +14,6 @@ import torch
 
 from tpubz.format.constants import block_budget
 from tpubz.hostref.rle1 import rle1_blocks
-from tpubz.native import block_transform_native
 from tpubz.stream.api import compress_cpu
 
 import tpubz_torch
@@ -22,6 +21,8 @@ from tpubz_torch.block.encode import DeviceBlockEncoder
 from tpubz_torch.corpus import edge_blocks, mixed_corpus
 from tpubz_torch.kernels import mtf, rle2
 from tpubz_torch.kernels.suffix_sort import bwt_forward
+
+from torch_native_guard import tpubz_native  # noqa: F401 (a fixture)
 
 pytestmark = pytest.mark.cuda
 
@@ -155,9 +156,10 @@ def _level9_data() -> bytes:
     return mixed_corpus(3, 7) + b"".join(edge_blocks().values())
 
 
-def test_level9_blocks_match_native(cuda):
+def test_level9_blocks_match_native(cuda, tpubz_native):
     """Every level-9 block: fetch(transform(blk)) on the card gives the key,
     symbols, frequencies and used map of tpubz.native.block_transform_native."""
+    block_transform_native = tpubz_native.block_transform_native
     arr = np.frombuffer(_level9_data(), np.uint8)
     out, blocks = rle1_blocks(arr, block_budget(9))
     assert len(blocks) == 5
@@ -223,12 +225,15 @@ def test_bitonic_matches_plain(cuda, log2n, dtype, op):
 
 def _periodic_round_keys(device):
     """The int64 keys of the first doubling round of a near-periodic level-9
-    block (b"ab" * 449_000 + b"c"): long runs of equal keys."""
+    block (b"ab" * 449_000 + b"c") less their positions, padded to 2^20
+    with INT64_MAX: long runs of equal keys."""
     from tpubz_torch.kernels import suffix_sort
 
     blk = edge_blocks()["near_periodic"]
     data = torch.frombuffer(bytearray(blk), dtype=torch.uint8).to(device)
-    return suffix_sort.round_keys(suffix_sort.seed_rank(data), 3)
+    keys = torch.full((1 << 20,), torch.iinfo(torch.int64).max, dtype=torch.int64, device=device)
+    keys[: len(blk)] = suffix_sort.seed_keys(data) >> suffix_sort.KEY_LO
+    return keys
 
 
 @pytest.mark.parametrize("shape", [(12, 4, 4), (13, 4, 5), (13, 3, 4), (14, 4, 5)],
@@ -318,31 +323,32 @@ def _bwt_case(case):
 
 @pytest.mark.parametrize("case", list(_BWT_CASES) + [
     "level9_corpus", "level9_near_periodic", "level9_one_byte_run", "level9_all256"])
-def test_bwt_forward_on_card_matches_cpu(cuda, case):
-    """bwt_forward on the card (one library call: the BWT kernels around
-    the bitonic sort) gives the key and last column of the plain version on
-    the card, pad lanes zero, with one counted call, a 2op sort per round run
-    and a 1op sort only where ties remain; small cases also equal the plain
-    version on the CPU."""
-    from tpubz_torch.kernels import bitonic, suffix_sort
+def test_bwt_forward_on_card_matches_cpu(cuda, case, tpubz_native):
+    """bwt_forward on the card (one library call: the doubling rounds on the
+    radix sort of csrc/radix.cuh) gives the key and last column of the plain
+    version on the card and of tpubz's native BWT, pad lanes zero, with one
+    counted call, a radix sort per round run and no bitonic sort; small
+    cases also equal the plain version on the CPU."""
+    from tpubz_torch.kernels import bitonic, radix, suffix_sort
 
     c = _bwt_case(case)
     N = 900_096 if case.startswith("level9_") else 4352
     data = torch.zeros(N, dtype=torch.uint8)
     data[: len(c)] = torch.frombuffer(bytearray(c), dtype=torch.uint8)
     on_card = data.to(cuda)
-    calls, before = dict(bitonic.CALLS), (suffix_sort.LAUNCHES, suffix_sort.ROUNDS_RUN)
+    before = (suffix_sort.LAUNCHES, suffix_sort.ROUNDS_RUN, radix.SORTS, dict(bitonic.CALLS))
     key, last = bwt_forward(on_card, len(c))
     torch.cuda.synchronize()
     rounds = suffix_sort.ROUNDS_RUN - before[1]
     assert suffix_sort.LAUNCHES == before[0] + 1
     assert 1 <= rounds <= suffix_sort.call_sizes(len(c))[2]
-    assert bitonic.CALLS["bitonic_2op"] == calls["bitonic_2op"] + rounds
-    assert bitonic.CALLS["bitonic_1op"] == calls["bitonic_1op"] + (case in _BWT_TIED)
+    assert radix.SORTS == before[2] + rounds and bitonic.CALLS == before[3]
     assert key.device.type == "cuda" and key.dtype == torch.int64 and key.dim() == 0
     rkey, rlast = suffix_sort.bwt_forward_ref(on_card, len(c))
     assert int(key) == int(rkey) and torch.equal(last, rlast)
     assert not last[len(c):].any()
+    nkey, nlast = tpubz_native.bwt_native(np.frombuffer(c, np.uint8))
+    assert int(key) == nkey and np.array_equal(last[: len(c)].cpu().numpy(), nlast)
     if not case.startswith("level9_"):
         ckey, clast = suffix_sort.bwt_forward_ref(data, len(c))
         assert int(key) == int(ckey) and torch.equal(last.cpu(), clast)
@@ -351,15 +357,56 @@ def test_bwt_forward_on_card_matches_cpu(cuda, case):
 @pytest.mark.parametrize("n", [1, 2, 3, 4, 6, 7, 100, 1 << 10, 900_000, 1 << 20])
 def test_bwt_call_sizes(cuda, n):
     """The library's sizes for a block of n bytes: the cap covers n
-    (3 * 2^(cap-2) >= n, the round after stalls) and is the least that does,
-    every round has a pinned word, and the scratch holds at least the keys,
-    positions and ranks of P lanes."""
+    (5 * 2^(cap-2) >= n, the round after leaves no rotation or splits no
+    class) and is the least that does, every round has its pinned words,
+    the scratch holds at least the two key buffers, rank, sa and the two
+    active lists of n rotations, and a round runs the plain version's radix
+    passes."""
+    from tpubz_torch.kernels import radix, suffix_sort
+
+    nbytes, words, cap, passes = suffix_sort.call_sizes(n)
+    assert 5 << (cap - 2) >= n and (cap == 2 or 5 << (cap - 3) < n)
+    assert cap == suffix_sort.round_cap(n) and words >= 3 * cap
+    assert nbytes > 32 * n
+    assert passes == len(radix.passes(suffix_sort.KEY_LO, suffix_sort.KEY_HI, radix.DIGIT_BITS))
+
+
+def _radix_keys(kind, cuda):
+    """Keys for the radix sort at the BWT's width: random 60-bit keys at
+    n = 900,000, or the keys of a real round (round 1 of the corpus's first
+    level-9 block, from the plain version)."""
     from tpubz_torch.kernels import suffix_sort
 
-    nbytes, words, cap = suffix_sort.call_sizes(n)
-    assert 3 << (cap - 2) >= n and (cap == 2 or 3 << (cap - 3) < n)
-    assert words >= cap
-    assert nbytes > 16 * suffix_sort.padded_length(n)
+    if kind == "random":
+        rng = np.random.default_rng(900)
+        return torch.from_numpy(rng.integers(0, 1 << 60, 900_000, dtype=np.int64)).to(cuda)
+    blk = torch.frombuffer(bytearray(mixed_corpus(1, 2026)[:900_000]), dtype=torch.uint8)
+    return suffix_sort.round_keys(blk.to(cuda), 1)
+
+
+@pytest.mark.parametrize("kind", ["random", "round1"])
+def test_radix_sort_matches_plain(cuda, kind):
+    """radix_sort on the card equals radix_sort_ref by bits 20-59, exactly
+    (equal fields in input order), one library call in the plain version's
+    digits, the input untouched; also at sizes around its 4096-key tile."""
+    from tpubz_torch.kernels import radix
+
+    bits = radix.DIGIT_BITS
+    assert radix.library_sizes(1)[1] == bits
+    keys = _radix_keys(kind, cuda)
+    original = keys.clone()
+    before = (radix.LAUNCHES, radix.PASS_LAUNCHES)
+    got = radix.radix_sort(keys, 20, 60)
+    torch.cuda.synchronize()
+    assert radix.LAUNCHES == before[0] + 1
+    assert radix.PASS_LAUNCHES - before[1] == 1 + len(radix.passes(20, 60, bits))
+    assert torch.equal(got, radix.radix_sort_ref(keys, 20, 60, bits))
+    assert torch.equal(keys, original)
+    for n in (1, 2, 4095, 4096, 4097, 3 * 4096 + 5):
+        part = keys[:n].contiguous()
+        assert torch.equal(radix.radix_sort(part, 20, 60), radix.radix_sort_ref(part, 20, 60, bits))
+    for lo, hi in ((0, 63), (7, 13)):
+        assert torch.equal(radix.radix_sort(keys, lo, hi), radix.radix_sort_ref(keys, lo, hi, bits))
 
 
 def test_bwt_forward_block_after_a_periodic_block(cuda):
@@ -383,7 +430,8 @@ def test_bwt_forward_block_after_a_periodic_block(cuda):
 
 def test_bwt_forward_two_threads_two_encoders(cuda):
     """Two encoders on two threads, each under its own stream, give the
-    bytes that one encoder gives block by block."""
+    bytes that one encoder gives block by block: the BWT's calls share no
+    scratch, tickets or status words."""
     from concurrent.futures import ThreadPoolExecutor
 
     arr = np.frombuffer(_level9_data(), np.uint8)
@@ -417,10 +465,11 @@ def test_bwt_forward_rejects_what_the_kernels_do_not_take(cuda):
     assert int(key) == 0 and not last.any()
 
 
-def test_fetch_bwt_pinned_copy_matches_sync(cuda):
+def test_fetch_bwt_pinned_copy_matches_sync(cuda, tpubz_native):
     """fetch_bwt's non-blocking copy into pinned memory, waited on through
     its event on another thread, equals a synchronous .cpu() of the same
     tensors; so does fetch's."""
+    block_transform_native = tpubz_native.block_transform_native
     from concurrent.futures import ThreadPoolExecutor
 
     blk = np.frombuffer(mixed_corpus(1, 4)[:900_000], np.uint8)

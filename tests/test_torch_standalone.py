@@ -24,6 +24,8 @@ from tpubz.stream.api import compress_cpu as tpubz_compress_cpu
 from tpubz_torch import native as pnative
 from tpubz_torch.corpus import edge_blocks, mixed_corpus
 
+from torch_native_guard import load_tpubz_native, tpubz_native  # noqa: F401 (a fixture)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _SURFACES = textwrap.dedent("""
@@ -194,7 +196,7 @@ _ENTRY_POINTS = {
 
 @pytest.mark.parametrize("case", _CASES)
 @pytest.mark.parametrize("entry", list(_ENTRY_POINTS))
-def test_native_entry_point_matches_tpubz(entry, case):
+def test_native_entry_point_matches_tpubz(entry, case, tpubz_native):
     """The port's native entry point gives tpubz.native's output on the same
     input, exactly: RLE1 split, MTF/RLE2, block transform, emission, CRC,
     magic scan and block decode."""
@@ -203,7 +205,7 @@ def test_native_entry_point_matches_tpubz(entry, case):
     _equal(fn(pnative, arr), fn(tnative, arr))
 
 
-def test_window_scan_and_large_magic_scan_match_tpubz():
+def test_window_scan_and_large_magic_scan_match_tpubz(tpubz_native):
     """The RLE1 window scan at an offset, and the chunked two-magic scan of
     an input above its 2.5 MB chunk threshold, equal tpubz's."""
     rng = np.random.default_rng(7)
@@ -221,7 +223,8 @@ def test_window_scan_and_large_magic_scan_match_tpubz():
            tnative.find_magic2_native(big, BLOCK_MAGIC, FOOTER_MAGIC))
 
 
-def test_loader_builds_into_the_port_build_dir_and_raises_without_gxx(tmp_path, monkeypatch):
+def test_loader_builds_into_the_port_build_dir_and_raises_without_gxx(tmp_path, monkeypatch,
+                                                                    tpubz_native):
     """The library lives under tpubz_torch/_build/ and is the port's own
     handle; with no g++ a fresh build raises instead of returning None."""
     lib = pnative.get_lib()
@@ -235,3 +238,21 @@ def test_loader_builds_into_the_port_build_dir_and_raises_without_gxx(tmp_path, 
     with pytest.raises(RuntimeError, match="g\\+\\+"):
         pnative.build()
     assert not os.path.exists(pnative.LIB_PATH)
+
+
+def test_native_guard_recovers_from_a_failed_first_load(tmp_path, monkeypatch):
+    """A worker whose first load of tpubz's library failed (a half-written
+    file: _LIB_FAILED set for good) loads it under the guard's lock; a load
+    that keeps failing fails the test with a clear message."""
+    monkeypatch.setattr(tnative, "_LIB", None)
+    monkeypatch.setattr(tnative, "_LIB_FAILED", True)
+    assert tnative.get_lib() is None
+    assert load_tpubz_native(tmp_path / "lock", monkeypatch) is tnative
+    assert tnative.get_lib() is not None and not tnative._LIB_FAILED
+    key, syms, _, _ = tnative.block_transform_native(_inputs()["random"])
+    assert syms.size > 0
+    monkeypatch.setattr(tnative, "_build", lambda: None)
+    monkeypatch.setattr(tnative, "_LIB", None)
+    monkeypatch.setattr(tnative, "_LIB_FAILED", True)
+    with pytest.raises(pytest.fail.Exception, match="did not load"):
+        load_tpubz_native(tmp_path / "lock", monkeypatch, wait_s=0.3, poll_s=0.05)

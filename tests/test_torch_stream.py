@@ -21,6 +21,8 @@ import tpubz_torch
 from tpubz_torch.block.encode import DeviceBlockEncoder
 from tpubz_torch.stream import api as papi
 
+from torch_native_guard import tpubz_native  # noqa: F401 (a fixture)
+
 # the test workers share the host's cores: keep torch's intra-op pool small
 torch.set_num_threads(2)
 
@@ -77,11 +79,10 @@ def test_block_bytes_match_tpubz(data):
         assert got == host.encode_block(blk, crc).pack()
 
 
-def test_fetch_matches_native_transform(data):
+def test_fetch_matches_native_transform(data, tpubz_native):
     """fetch(transform(blk)) is tpubz's materialize tuple: key, symbols,
     frequencies and used map equal the native engine's, EOB last."""
-    from tpubz.native import block_transform_native
-
+    block_transform_native = tpubz_native.block_transform_native
     arr = np.frombuffer(data, np.uint8)
     out, blocks = rle1_blocks(arr, block_budget(1))
     enc = DeviceBlockEncoder(1, "cpu")
@@ -222,11 +223,34 @@ def test_stage_probe_runs_at_level_1_on_cpu():
         sum(st["sum_ms"][k] for k in parts))
     prof = stage_probe.profile_stream(d, 1, "cpu")
     assert prof["device_events"] == 0 and prof["idle_share"] is None
-    assert prof["bitonic_kernels"] == []
+    assert prof["bwt_kernels"] == []
     sweep = stage_probe.window_sweep(d, 1, "cpu", reps=1)
     assert set(sweep["MBps"]) == {str(w) for w in stage_probe.WINDOWS}
     assert len(sweep["host_engine_MBps"]) == 1
     assert papi.WINDOW == sweep["default"]
+
+
+def test_bwt_kernel_times_fold_template_arguments():
+    """bwt_anatomy's sums by kernel: the radix passes under one name, with
+    or without template arguments or parameters in their symbol, and every
+    other BWT kernel under its own name; other kernels as named."""
+    from tpubz_torch.stage_probe import BWT_KERNELS, _by_kernel
+
+    passes = ("void tpubz::radix::(anonymous namespace)::radix_pass("
+              "tpubz::radix::(anonymous namespace)::PassArgs)")
+    call = {"kernels_us": {passes: 3.0,
+                           "void tpubz::radix::(anonymous namespace)::radix_pass<8>(...)": 4.0,
+                           "void (anonymous namespace)::bwt_keys<8>(...)": 2.0,
+                           "Memset (Device)": 0.5},
+            "kernels_launches": {passes: 5,
+                                 "void tpubz::radix::(anonymous namespace)::radix_pass<8>(...)": 4,
+                                 "void (anonymous namespace)::bwt_keys<8>(...)": 1,
+                                 "Memset (Device)": 1}}
+    out = _by_kernel(call)
+    assert out["radix_pass"] == {"us": 7.0, "launches": 9}
+    assert out["bwt_keys"] == {"us": 2.0, "launches": 1}
+    assert out["Memset (Device)"] == {"us": 0.5, "launches": 1}
+    assert "bwt_rank_apply" in BWT_KERNELS and "bwt_last_column" in BWT_KERNELS
 
 
 def test_union_of_device_intervals():

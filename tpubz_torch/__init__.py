@@ -9,10 +9,11 @@ Public API, the surfaces of tpubz and of the stdlib ``bz2``:
   python -m tpubz_torch [bzip2 flags] [files]
 
 Layer map:
-  kernels/  BWT on a hand-written CUDA bitonic sort (csrc/bitonic.cu), MTF
-            (csrc/mtf.cu) and RLE2 (csrc/rle2.cu) as hand-written CUDA
-            kernels, each beside its plain torch version for CPU tensors;
-            the CUDA sources are built with nvcc at first use into _build/
+  kernels/  BWT (csrc/bwt.cu) on a hand-written radix sort (csrc/radix.cu),
+            MTF (csrc/mtf.cu) and RLE2 (csrc/rle2.cu) as hand-written CUDA
+            kernels, each beside its plain torch version for CPU tensors,
+            and the bitonic sorts of the TPU probes (csrc/bitonic.cu); the
+            CUDA sources are built with nvcc at first use into _build/
   block/    per-block device transforms (full chain, or the BWT alone) and
             the pinned, event-synchronised host fetches
   stream/   the hybrid scheduler (device blocks beside native CPU workers,

@@ -1,6 +1,6 @@
 // The whole forward BWT of one block on the card, in one library call:
-// the seed keys, every doubling round (key build, bitonic sort, re-rank),
-// the stop test, the key and the last column.
+// every doubling round (keys, their radix sort, re-rank and compaction), the
+// stop test, the key and the last column.
 //
 // Replaces tpubz/kernels/suffix_sort.py:bwt_forward, an XLA program of
 // tpubz's device chain (a fixed number of 4-key variadic sorts under
@@ -9,108 +9,103 @@
 // Only its outputs are kept: key = the number of rotations strictly smaller
 // than rotation 0, last[:n] = the BWT last column (periodic blocks
 // included), last[n:] = 0. The formulation is this card's
-// (tpubz_torch/kernels/suffix_sort.py describes it): 2-ary doubling on one
-// packed int64 key per round, (rank[i] << 32) | rank[(i + k) mod n], sorted
-// with its position by the network of csrc/bitonic.cu; ranks are int32 (the
-// seed is 24 bits, later ranks are dense and < n <= 2^20).
+// (tpubz_torch/kernels/suffix_sort.py describes it): prefix doubling with
+// group-start ranks that sorts, after round 0, only the rotations whose
+// class still has company, one int64 key a rotation with its position in
+// bits 0-19, on the LSD radix sort of csrc/radix.cuh.
 //
-//   bwt_seed_keys     round 0's keys straight from the bytes, the three
-//                     cyclic bytes at i over the three at i + 3; pad lanes
-//                     INT64_MAX; positions i.
-//   bwt_round_keys    a later round's keys from rank; the shifted operand is
-//                     a contiguous read from (i + k) mod n, so it coalesces.
-//   bwt_rerank_count  one CTA per tile of 2048 sorted lanes: how many lanes
-//                     differ from the lane before (the tile's new classes).
-//   bwt_rerank        one CTA per tile: the tile's offset is the sum of the
-//                     counts before it (at most 512, every CTA adds them up
-//                     itself: no third launch and no look-back spin), a CTA
-//                     scan gives cls(i), and rank[order[i]] = cls(i). Every
-//                     CTA also knows the total, distinct = classes: when it
-//                     equals the round before's, the partition did not
-//                     change (classes only split) and the write is skipped,
-//                     as the plain version skips it. It would be harmless:
-//                     the old rank is dense, the new key's high field is the
-//                     old rank, so an unchanged partition ordered by it
-//                     gives every class its old index.
-//   bwt_last_column   distinct == n: rank is a permutation, so
-//                     last[rank[(j + 1) mod n]] = block[j] and key = rank[0].
-//                     One scatter and no sort.
-//   bwt_tie_keys,     distinct < n (periodic blocks): identical rotations
-//   bwt_tie_gather    share their last byte, so the order by the next
-//                     rotation's rank with ties in j order gives the column:
-//                     a keys-only sort of (rank[(j+1) mod n] << 20) | j, then
-//                     a gather; key = #(rank < rank[0]) by integer atomics.
+//   bwt_keys          a round's keys, built straight into the radix sort's
+//                     histogram launch: round 0 from the block's bytes (all
+//                     n rotations), a later round from the active list and
+//                     rank (rank[i] << 40 | rank[(i + h) mod n] << 20 | i).
+//   radix_pass        one launch a digit of bits 20-59 (radix.cuh).
+//   bwt_rank_tiles    one CTA per tile of 2048 sorted keys: its last class
+//                     start, its last head, its heads, class starts and
+//                     rotations that stay active.
+//   bwt_rank_apply    one CTA per tile: every CTA adds up the tiles before
+//                     it (at most 512, no look-back spin) and scans its own:
+//                     key q's slot is g + q - (its class's first index), its
+//                     rank its head's slot; rank[i], sa[slot] and the
+//                     compacted next active list are written (the last two
+//                     through shared memory, in tile order), and CTA 0,
+//                     which has no tile before it, adds up all of them and
+//                     writes the round's state.
+//   bwt_last_column   last[p] = block[(sa[p] + n - 1) mod n], key = rank[0]:
+//                     one gather, ties included (identical rotations).
 //
-// The stop test without a stall. The state lives on the device, one slot
-// per round: distinct[r] and done[r], written by round r's bwt_rerank.
-// Every kernel of round r, the bitonic pass kernels included, reads
-// done[r-1] first and returns at once when it is set; nothing else reads a
-// word that the same launch writes. The host enqueues round r+1, then waits
-// for the event after round r and reads distinct[r] from a pinned word that
-// round r's bwt_rerank wrote through the card's mapping of it, so the card
-// always has the next round queued, and after the last round it runs
-// through at most one round of empty launches, none of which writes: when
-// the call returns, nothing queued touches the pinned words. The rule is
-// the plain version's: stop after a round with distinct == n, or with
-// distinct equal to the round before's.
+// The stop test without a stall. The state lives on the device, a slot per
+// round: m[r + 1] (the next round's active count) and done[r], written by
+// round r's bwt_rank_apply. Every kernel of round r reads done[r - 1] and
+// m[r] first and its CTAs past m[r] return at once, so the grids are sized
+// for n. The host enqueues round r + 1, then sleeps on the event after
+// round r and reads the round's words from pinned memory that round r's
+// bwt_rank_apply wrote through the card's mapping of it: the card always
+// has the next round queued, and after the last round it runs through one
+// round of empty launches that write nothing. The rule: stop after a round
+// that leaves no active rotation, or in which no active class split (the
+// partition at 2h equals the one at h).
 //
-// What bounds it on an H100: per round 8.4 MB of sorted keys and 4.2 MB of
-// positions in, 3.6 MB of ranks out (scattered: 32-byte sectors), 7.2 MB of
-// ranks in and 12.6 MB of keys and positions out: ~10 us at 3.35 TB/s
-// beside a sort of ~290 us. The kernels are plain maps and one CTA scan; the
-// work is in the sorts.
+// What bounds it on an H100, per round of m active keys: the sort's passes
+// at 16 bytes a key each (radix.cuh), the key build's gathers of rank and
+// the re-rank's scatter of rank (32-byte sectors for 4-byte words), all
+// inside the 50 MB L2; and the host's wake-up per round. The re-rank's
+// writes of sa and of the next active list go out through shared memory,
+// consecutive threads to consecutive slots, so that they fill whole sectors.
 #include <cuda_runtime.h>
 
 #include <chrono>
-#include <climits>
 #include <cstdint>
 
-#include "bitonic.cuh"
 #include "block_scan.cuh"
+#include "radix.cuh"
 
 namespace {
 
+using tpubz::radix::Gate;
+using tpubz::radix::kDigitBits;
+using tpubz::radix::gated_count;
+using tpubz::radix::kTile;
+using tpubz::radix::tiles_of;
+
 constexpr int kThreads = 256;
-constexpr int kPer = 8;  // sorted lanes a thread of the re-rank holds
-constexpr int kTile = kThreads * kPer;
+constexpr int kRankPer = 8;  // sorted keys a thread of the re-rank holds
+constexpr int kRankTile = kThreads * kRankPer;
 constexpr int kMaxLog2 = 20;
-constexpr int kMaxTiles = (1 << kMaxLog2) / kTile;
-constexpr int kMaxRounds = 24;  // state slots; the round cap at 2^20 is 21
-constexpr int64_t kPadKey = INT64_MAX;
-constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxRankTiles = (1 << kMaxLog2) / kRankTile;
+constexpr int kMaxRounds = 24;  // state slots; the round cap at 2^20 is 20
+constexpr int kSeedBytes = 5;
+constexpr int kKeyLo = kMaxLog2, kKeyHi = 3 * kMaxLog2;  // the sorted bits
+constexpr int kPinnedPerRound = 3;  // next active count, classes, split
+constexpr int64_t kPosMask = (1 << kMaxLog2) - 1;
+constexpr int kAggs = 5;  // per re-rank tile: last class start, last head, heads, starts, active
+constexpr int kPasses = tpubz::radix::passes_of(kKeyLo, kKeyHi);
 
-// The scratch tensor: keys int64[Pa], positions int32[Pa], rank int32[Pa],
-// tile counts int32[kMaxTiles], distinct int32[kMaxRounds], done
-// int32[kMaxRounds]; Pa = max(P, 64) keeps every part 256-byte aligned.
-struct Scratch {
-  int64_t* keys;
-  int32_t* positions;
-  int32_t* rank;
-  int32_t* tile_counts;
-  int32_t* distinct;
-  int32_t* done;
+size_t align256(size_t b) { return (b + 255) & ~static_cast<size_t>(255); }
+
+// The scratch: the two key buffers, rank, sa, the two active lists, the
+// re-rank's tile aggregates, then the words zeroed once per call: the state
+// (m[kMaxRounds + 1], done[kMaxRounds]), a ticket per round and pass, each
+// round's histogram, the radix status words.
+struct Layout {
+  size_t keys[2], rank, sa, act[2], agg, zero, m, done, tickets, hist, status, bytes;
+  Layout(int n, int cap) {
+    const size_t n8 = align256(8 * static_cast<size_t>(n)), n4 = align256(4 * static_cast<size_t>(n));
+    keys[0] = 0;
+    keys[1] = n8;
+    rank = 2 * n8;
+    sa = rank + n4;
+    act[0] = sa + n4;
+    act[1] = act[0] + n4;
+    agg = act[1] + n4;
+    zero = agg + align256(4 * kAggs * kMaxRankTiles);
+    m = zero;
+    done = m + 4 * (kMaxRounds + 1);
+    tickets = align256(done + 4 * kMaxRounds);
+    hist = tickets + 4 * static_cast<size_t>(cap) * tpubz::radix::kMaxPasses;
+    status = hist + (static_cast<size_t>(cap) * kPasses << kDigitBits) * 4;
+    bytes = status + (static_cast<size_t>(tiles_of(n)) << kDigitBits) * 4;
+  }
 };
-
-constexpr int kTailBytes = 4 * (kMaxTiles + 2 * kMaxRounds);
-
-size_t scratch_bytes(int P) { return 16 * static_cast<size_t>(P < 64 ? 64 : P) + kTailBytes; }
-
-Scratch carve(void* base, int P) {
-  const size_t Pa = P < 64 ? 64 : P;
-  auto* b = static_cast<unsigned char*>(base);
-  Scratch s;
-  s.keys = reinterpret_cast<int64_t*>(b);
-  s.positions = reinterpret_cast<int32_t*>(b + 8 * Pa);
-  s.rank = reinterpret_cast<int32_t*>(b + 12 * Pa);
-  s.tile_counts = reinterpret_cast<int32_t*>(b + 16 * Pa);
-  s.distinct = s.tile_counts + kMaxTiles;
-  s.done = s.distinct + kMaxRounds;
-  return s;
-}
-
-__device__ __forceinline__ bool is_done(const int32_t* done) {
-  return done != nullptr && *done != 0;
-}
 
 // (i + k) mod n for 0 <= i < n and 0 <= k < n: i + k < 2n <= 2^21
 __device__ __forceinline__ int wrap(int i, int k, int n) {
@@ -118,170 +113,219 @@ __device__ __forceinline__ int wrap(int i, int k, int n) {
   return j >= n ? j - n : j;
 }
 
+// The round's keys, in active-list order (all n rotations in round 0,
+// act == nullptr), and every digit's count. h: the round's shift, reduced
+// mod n.
 __global__ void __launch_bounds__(kThreads)
-    bwt_seed_keys(const uint8_t* __restrict__ block, int n, int P, int64_t* __restrict__ keys,
-                  int32_t* __restrict__ positions) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= P) return;
-  positions[i] = i;
-  if (i >= n) {
-    keys[i] = kPadKey;
-    return;
-  }
-  // the six cyclic bytes from i on, whatever n is (n = 1: six times the byte)
-  uint64_t packed = 0;
-  int j = i;
+    bwt_keys(const uint8_t* __restrict__ block, int n, const int32_t* __restrict__ rank,
+             const int32_t* __restrict__ act, int h, Gate gate, int64_t* __restrict__ keys,
+             uint32_t* hist) {
+  __shared__ uint32_t s_hist[kPasses << kDigitBits];
+  const int m = gated_count(gate);
+  const int base = blockIdx.x * kTile;
+  if (base >= m) return;
+  for (int x = threadIdx.x; x < kPasses << kDigitBits; x += kThreads) s_hist[x] = 0;
+  __syncthreads();
+#pragma unroll 4
+  for (int j = 0; j < tpubz::radix::kPer; ++j) {
+    const int q = base + j * kThreads + threadIdx.x;
+    int64_t key = 0;
+    if (q < m) {
+      if (act == nullptr) {
+        // the cyclic bytes from q on, whatever n is (n = 1: the byte again)
+        uint64_t packed = 0;
+        int i = q;
 #pragma unroll
-  for (int q = 0; q < 6; ++q) {
-    packed = (packed << (q == 3 ? 16 : 8)) | block[j];
-    j = j + 1 == n ? 0 : j + 1;
+        for (int b = 0; b < kSeedBytes; ++b) {
+          packed = (packed << 8) | block[i];
+          i = i + 1 == n ? 0 : i + 1;
+        }
+        key = static_cast<int64_t>(packed << kMaxLog2) | q;
+      } else {
+        const int i = act[q];
+        key = (static_cast<int64_t>(rank[i]) << (2 * kMaxLog2)) |
+              (static_cast<int64_t>(rank[wrap(i, h, n)]) << kMaxLog2) | i;
+      }
+      keys[q] = key;
+    }
+    tpubz::radix::hist_add(s_hist, key, q < m, kKeyLo, kKeyHi);
   }
-  keys[i] = static_cast<int64_t>(packed);
+  tpubz::radix::hist_flush(s_hist, hist, kPasses);
 }
 
-// k: the round's shift, already reduced mod n
-__global__ void __launch_bounds__(kThreads)
-    bwt_round_keys(const int32_t* __restrict__ rank, int n, int P, int k,
-                   const int32_t* __restrict__ done, int64_t* __restrict__ keys,
-                   int32_t* __restrict__ positions) {
-  if (is_done(done)) return;
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= P) return;
-  positions[i] = i;  // the sort permuted its payload
-  keys[i] = i < n ? (static_cast<int64_t>(rank[i]) << 32) |
-                        static_cast<uint32_t>(rank[wrap(i, k, n)])
-                  : kPadKey;
+// The flags of this thread's kRankPer sorted keys from `base` on (m keys in
+// all): head (bits 20-59 differ from the key before; key 0 is one), class
+// start (the old rank, bits 40-59 in rounds >= 1, differs; in round 0 all
+// rotations are one class) and whether the key's new class has company.
+struct Flags {
+  int64_t key[kRankPer];
+  bool head[kRankPer], start[kRankPer], active[kRankPer];
+};
+
+__device__ __forceinline__ void load_flags(const int64_t* __restrict__ skey, int base, int m,
+                                           int round, Flags& f) {
+  const int gshift = round > 0 ? 2 * kMaxLog2 : 63;  // round 0: g = 0 for every key
+  int64_t prev = base > 0 && base <= m ? skey[base - 1] : 0;
+  bool head_next = true;  // past the last key
+#pragma unroll
+  for (int q = 0; q < kRankPer; ++q) {
+    const int idx = base + q;
+    f.key[q] = idx < m ? skey[idx] : 0;
+  }
+  if (base + kRankPer < m) head_next = (skey[base + kRankPer] >> kKeyLo) != (f.key[kRankPer - 1] >> kKeyLo);
+#pragma unroll
+  for (int q = 0; q < kRankPer; ++q) {
+    const int idx = base + q;
+    const int64_t k = f.key[q];
+    f.head[q] = idx < m && (idx == 0 || (k >> kKeyLo) != (prev >> kKeyLo));
+    f.start[q] = idx < m && (idx == 0 || (k >> gshift) != (prev >> gshift));
+    prev = k;
+  }
+#pragma unroll
+  for (int q = 0; q < kRankPer; ++q) {
+    const bool next = q + 1 < kRankPer ? (base + q + 1 >= m || f.head[q + 1]) : head_next;
+    f.active[q] = base + q < m && !(f.head[q] && next);
+  }
 }
 
-// This thread's kPer sorted lanes from `base` on: f[q] is 1 where lane
-// base + q < n starts a new class (its key differs from the lane before;
-// lane 0 starts none). Pad lanes, and the lanes of a buffer shorter than the
-// tile, are never read.
-__device__ __forceinline__ void load_flags(const int64_t* __restrict__ skey, int base, int n,
-                                           int (&f)[kPer]) {
-  int64_t prev = base > 0 && base <= n ? skey[base - 1] : 0;
-  if (base + kPer <= n) {
-    const longlong2* v = reinterpret_cast<const longlong2*>(skey + base);
+// agg[k * kMaxRankTiles + tile], k: last class start, last head (-1 if
+// none), heads, class starts, active keys
+__global__ void __launch_bounds__(kThreads)
+    bwt_rank_tiles(const int64_t* __restrict__ skey, int round, Gate gate, int32_t* __restrict__ agg) {
+  __shared__ int sh[32];
+  const int m = gated_count(gate);
+  if (blockIdx.x * kRankTile >= m) return;
+  const int base = blockIdx.x * kRankTile + threadIdx.x * kRankPer;
+  Flags f;
+  load_flags(skey, base, m, round, f);
+  int last_start = -1, last_head = -1, heads = 0, starts = 0, active = 0;
 #pragma unroll
-    for (int q = 0; q < kPer; q += 2) {
-      const longlong2 x = v[q / 2];
-      f[q] = x.x != prev;
-      f[q + 1] = x.y != x.x;
-      prev = x.y;
+  for (int q = 0; q < kRankPer; ++q) {
+    if (f.start[q]) last_start = base + q;
+    if (f.head[q]) last_head = base + q;
+    heads += f.head[q];
+    starts += f.start[q];
+    active += f.active[q];
+  }
+  int out[kAggs];
+  tpubz::block_exclusive(last_start, -1, tpubz::Max(), sh, &out[0]);
+  tpubz::block_exclusive(last_head, -1, tpubz::Max(), sh, &out[1]);
+  tpubz::block_exclusive(heads, 0, tpubz::Sum(), sh, &out[2]);
+  tpubz::block_exclusive(starts, 0, tpubz::Sum(), sh, &out[3]);
+  tpubz::block_exclusive(active, 0, tpubz::Sum(), sh, &out[4]);
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int k = 0; k < kAggs; ++k) agg[k * kMaxRankTiles + blockIdx.x] = out[k];
+  }
+}
+
+// A tile index's word in the re-rank's shared arrays: one pad word every
+// 32, so that neither the threads' runs of kRankPer nor a warp's 32
+// consecutive indices share a bank.
+__device__ __forceinline__ int padded(int x) { return x + (x >> 5); }
+constexpr int kPaddedRankTile = kRankTile + kRankTile / 32;
+
+// m_next and done: the state's slots; pinned: the card's address of the
+// host's pinned words, kPinnedPerRound a round.
+__global__ void __launch_bounds__(kThreads)
+    bwt_rank_apply(const int64_t* __restrict__ skey, int n, int round, Gate gate,
+                   const int32_t* __restrict__ agg, int32_t* __restrict__ rank,
+                   int32_t* __restrict__ sa, int32_t* __restrict__ act_next, int32_t* m_next,
+                   int32_t* done, int32_t* __restrict__ pinned) {
+  __shared__ int sh[32];
+  // per key of the tile: its position, its slot and its index in the next
+  // active list (-1: it leaves the list)
+  __shared__ int s_pos[kPaddedRankTile], s_slot[kPaddedRankTile], s_out[kPaddedRankTile];
+  const int m = gated_count(gate);
+  if (blockIdx.x * kRankTile >= m) return;
+  int start_before = -1, head_before = -1, active_before = 0;
+  if (blockIdx.x == 0) {
+    // no tile before this one: the round's state from all of them
+    const int tiles = (m + kRankTile - 1) / kRankTile;
+    int heads = 0, starts = 0, active = 0;
+    for (int t = threadIdx.x; t < tiles; t += kThreads) {
+      heads += agg[2 * kMaxRankTiles + t];
+      starts += agg[3 * kMaxRankTiles + t];
+      active += agg[4 * kMaxRankTiles + t];
+    }
+    tpubz::block_exclusive(heads, 0, tpubz::Sum(), sh, &heads);
+    tpubz::block_exclusive(starts, 0, tpubz::Sum(), sh, &starts);
+    tpubz::block_exclusive(active, 0, tpubz::Sum(), sh, &active);
+    if (threadIdx.x == 0) {
+      const bool split = heads > starts;
+      m_next[round + 1] = active;
+      done[round] = active == 0 || !split;
+      pinned[kPinnedPerRound * round] = active;
+      pinned[kPinnedPerRound * round + 1] = n - m + heads;  // classes of all n rotations
+      pinned[kPinnedPerRound * round + 2] = split;
     }
   } else {
-#pragma unroll
-    for (int q = 0; q < kPer; ++q) {
-      f[q] = 0;
-      if (base + q < n) {
-        const int64_t x = skey[base + q];
-        f[q] = x != prev;
-        prev = x;
-      }
+    for (int t = threadIdx.x; t < static_cast<int>(blockIdx.x); t += kThreads) {
+      start_before = max(start_before, agg[t]);
+      head_before = max(head_before, agg[kMaxRankTiles + t]);
+      active_before += agg[4 * kMaxRankTiles + t];
     }
+    tpubz::block_exclusive(start_before, -1, tpubz::Max(), sh, &start_before);
+    tpubz::block_exclusive(head_before, -1, tpubz::Max(), sh, &head_before);
+    tpubz::block_exclusive(active_before, 0, tpubz::Sum(), sh, &active_before);
   }
-  if (base == 0) f[0] = 0;
-}
 
-__global__ void __launch_bounds__(kThreads)
-    bwt_rerank_count(const int64_t* __restrict__ skey, int n, const int32_t* __restrict__ done,
-                     int32_t* __restrict__ tile_counts) {
-  __shared__ int sh[32];
-  if (is_done(done)) return;
-  int f[kPer];
-  load_flags(skey, blockIdx.x * kTile + threadIdx.x * kPer, n, f);
-  int count = 0;
+  const int base = blockIdx.x * kRankTile + threadIdx.x * kRankPer;
+  Flags f;
+  load_flags(skey, base, m, round, f);
+  int my_start = -1, my_head = -1, my_active = 0;
 #pragma unroll
-  for (int q = 0; q < kPer; ++q) count += f[q];
-  int total;
-  tpubz::block_exclusive(count, 0, tpubz::Sum(), sh, &total);
-  if (threadIdx.x == 0) tile_counts[blockIdx.x] = total;
-}
-
-// distinct and done: the state's slots, one per round; this launch reads
-// slot round - 1 and writes slot round. host_distinct: the card's address
-// of the host's pinned words, one per round.
-__global__ void __launch_bounds__(kThreads)
-    bwt_rerank(const int64_t* __restrict__ skey, const int32_t* __restrict__ order, int n,
-               const int32_t* __restrict__ tile_counts, int round, int32_t* distinct,
-               int32_t* done, int32_t* __restrict__ host_distinct, int32_t* __restrict__ rank) {
-  __shared__ int sh[32];
-  if (round > 0 && done[round - 1] != 0) return;
-  int before = 0, all = 0;
-  for (int t = threadIdx.x; t < gridDim.x; t += kThreads) {
-    const int c = tile_counts[t];
-    all += c;
-    if (t < blockIdx.x) before += c;
+  for (int q = 0; q < kRankPer; ++q) {
+    if (f.start[q]) my_start = base + q;
+    if (f.head[q]) my_head = base + q;
+    my_active += f.active[q];
   }
-  int tile_before, classes;
-  tpubz::block_exclusive(before, 0, tpubz::Sum(), sh, &tile_before);
-  tpubz::block_exclusive(all, 0, tpubz::Sum(), sh, &classes);
-  classes += 1;  // lane 0's class
-  const int base = blockIdx.x * kTile + threadIdx.x * kPer;
-  int f[kPer];
-  load_flags(skey, base, n, f);
-  int count = 0;
-#pragma unroll
-  for (int q = 0; q < kPer; ++q) count += f[q];
   int unused;
-  int cls = tpubz::block_exclusive(count, 0, tpubz::Sum(), sh, &unused) + tile_before;
-  const bool stall = round > 0 && classes == distinct[round - 1];
-  if (!stall) {
-    // equal keys get equal classes whatever order the sort left them in
+  int first = max(start_before, tpubz::block_exclusive(my_start, -1, tpubz::Max(), sh, &unused));
+  int headq = max(head_before, tpubz::block_exclusive(my_head, -1, tpubz::Max(), sh, &unused));
+  int out = active_before + tpubz::block_exclusive(my_active, 0, tpubz::Sum(), sh, &unused);
 #pragma unroll
-    for (int q = 0; q < kPer; ++q) {
-      if (base + q < n) {
-        cls += f[q];
-        rank[order[base + q]] = cls;
-      }
+  for (int q = 0; q < kRankPer; ++q) {
+    const int idx = base + q;
+    if (idx < m) {
+      if (f.start[q]) first = idx;
+      if (f.head[q]) headq = idx;
+      const int64_t k = f.key[q];
+      const int i = static_cast<int>(k & kPosMask);
+      const int g = round > 0 ? static_cast<int>(k >> (2 * kMaxLog2)) : 0;
+      rank[i] = g + headq - first;
+      const int x = padded(threadIdx.x * kRankPer + q);
+      s_pos[x] = i;
+      s_slot[x] = g + idx - first;
+      s_out[x] = f.active[q] ? out++ : -1;
     }
   }
-  if (blockIdx.x == 0 && threadIdx.x == 0) {
-    distinct[round] = classes;
-    done[round] = classes == n || stall;
-    host_distinct[round] = classes;
+  __syncthreads();
+  const int count = min(kRankTile, m - static_cast<int>(blockIdx.x) * kRankTile);
+  for (int x = threadIdx.x; x < count; x += kThreads) {
+    const int i = s_pos[padded(x)];
+    sa[s_slot[padded(x)]] = i;
+    const int o = s_out[padded(x)];
+    if (o >= 0) act_next[o] = i;
   }
 }
 
 __global__ void __launch_bounds__(kThreads)
-    bwt_last_column(const uint8_t* __restrict__ block, const int32_t* __restrict__ rank, int n,
-                    int N, uint8_t* __restrict__ last, int64_t* __restrict__ key) {
-  const int j = blockIdx.x * kThreads + threadIdx.x;
-  if (j >= N) return;
-  if (j >= n) {
-    last[j] = 0;
+    bwt_last_column(const uint8_t* __restrict__ block, const int32_t* __restrict__ sa,
+                    const int32_t* __restrict__ rank, int n, int N, uint8_t* __restrict__ last,
+                    int64_t* __restrict__ key) {
+  const int p = blockIdx.x * kThreads + threadIdx.x;
+  if (p >= N) return;
+  if (p >= n) {
+    last[p] = 0;
     return;
   }
-  last[rank[wrap(j, 1 % n, n)]] = block[j];
-  if (j == 0) *key = rank[0];
+  const int i = sa[p];
+  last[p] = block[i == 0 ? n - 1 : i - 1];
+  if (p == 0) *key = rank[0];
 }
 
-// *key is zero before the launch
-__global__ void __launch_bounds__(kThreads)
-    bwt_tie_keys(const int32_t* __restrict__ rank, int n, int P, int64_t* __restrict__ keys,
-                 int64_t* __restrict__ key) {
-  const int j = blockIdx.x * kThreads + threadIdx.x;
-  int below = 0;
-  if (j < P) {
-    keys[j] = j < n ? (static_cast<int64_t>(rank[wrap(j, 1 % n, n)]) << kMaxLog2) | j : kPadKey;
-    below = j < n && rank[j] < rank[0];
-  }
-  const unsigned votes = __ballot_sync(kFull, below);
-  if ((threadIdx.x & 31) == 0 && votes) {
-    atomicAdd(reinterpret_cast<unsigned long long*>(key),
-              static_cast<unsigned long long>(__popc(votes)));
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-    bwt_tie_gather(const uint8_t* __restrict__ block, const int64_t* __restrict__ sorted, int n,
-                   int N, uint8_t* __restrict__ last) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= N) return;
-  last[i] = i < n ? block[sorted[i] & ((1 << kMaxLog2) - 1)] : 0;
-}
-
-int blocks_for(int lanes) { return (lanes + kThreads - 1) / kThreads; }
+int blocks_for(int lanes, int per) { return (lanes + per - 1) / per; }
 
 // the two events of the one-round-ahead schedule, destroyed on every return
 struct Events {
@@ -304,17 +348,17 @@ struct Events {
 };
 
 // The most doubling rounds a block of n bytes can need, plus one: round r
-// compares 3 * 2^(r+1) bytes, and once that covers n the next round stalls.
+// compares kSeedBytes * 2^r bytes, and once that covers n the next round
+// leaves no rotation active or splits no class.
 int round_cap(int n) {
   int c = 0;
-  while ((3LL << c) < n) ++c;
+  while ((static_cast<long long>(kSeedBytes) << c) < n) ++c;
   return c + 2;
 }
 
 // The call behind tpubz_bwt_forward, which describes the arguments.
 int enqueue_bwt(const uint8_t* block, int n, int N, void* scratch, int scratch_bytes_given,
-                int* pinned, const int* plan, int plan_len, int64_t* out_key, uint8_t* out_last,
-                int* stats, cudaStream_t st) {
+                int* pinned, int64_t* out_key, uint8_t* out_last, int* stats, cudaStream_t st) {
   using Clock = std::chrono::steady_clock;
   const auto us_since = [](Clock::time_point t) {
     return static_cast<int>(
@@ -323,14 +367,17 @@ int enqueue_bwt(const uint8_t* block, int n, int N, void* scratch, int scratch_b
   const auto t_call = Clock::now();
   for (int q = 0; q < 7; ++q) stats[q] = 0;
   if (n < 1 || n > N || n > (1 << kMaxLog2)) return static_cast<int>(cudaErrorInvalidValue);
-  int P = 1;
-  while (P < n) P <<= 1;
-  if (static_cast<size_t>(scratch_bytes_given) < scratch_bytes(P)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const Scratch s = carve(scratch, P);
   const int cap = round_cap(n);
-  const int tiles = (n + kTile - 1) / kTile;
+  const Layout L(n, cap);
+  if (static_cast<size_t>(scratch_bytes_given) < L.bytes) return static_cast<int>(cudaErrorInvalidValue);
+  auto* b = static_cast<unsigned char*>(scratch);
+  const auto i64 = [&](size_t off) { return reinterpret_cast<int64_t*>(b + off); };
+  const auto i32 = [&](size_t off) { return reinterpret_cast<int32_t*>(b + off); };
+  const auto u32 = [&](size_t off) { return reinterpret_cast<uint32_t*>(b + off); };
+  int64_t* const keys[2] = {i64(L.keys[0]), i64(L.keys[1])};
+  int32_t* const act[2] = {i32(L.act[0]), i32(L.act[1])};
+  int32_t* const m_state = i32(L.m);
+  int32_t* const done = i32(L.done);
   Events events;
   if (cudaError_t e = events.create()) return static_cast<int>(e);
   int32_t* pinned_on_card = nullptr;
@@ -338,30 +385,33 @@ int enqueue_bwt(const uint8_t* block, int n, int N, void* scratch, int scratch_b
                                                0)) {
     return static_cast<int>(e);
   }
+  int& own_launches = stats[1];
   int& pass_launches = stats[2];
-  int& own_launches = stats[3];
   int& enqueue_us = stats[4];
   int& wait_us = stats[5];
+  // the state, tickets, histograms and status words: this call's tags only
+  if (cudaError_t e = cudaMemsetAsync(b + L.zero, 0, L.bytes - L.zero, st)) return static_cast<int>(e);
 
   // one doubling round and its event
   auto enqueue_round_untimed = [&](int r) -> int {
-    const int32_t* done = r > 0 ? s.done + (r - 1) : nullptr;
-    if (r == 0) {
-      bwt_seed_keys<<<blocks_for(P), kThreads, 0, st>>>(block, n, P, s.keys, s.positions);
-    } else {
-      const int k = static_cast<int>((3LL << r) % n);
-      bwt_round_keys<<<blocks_for(P), kThreads, 0, st>>>(s.rank, n, P, k, done, s.keys,
-                                                         s.positions);
-    }
+    const Gate gate{r > 0 ? done + (r - 1) : nullptr, r > 0 ? m_state + r : nullptr, n};
+    const int h = r > 0 ? static_cast<int>((static_cast<long long>(kSeedBytes) << (r - 1)) % n) : 0;
+    uint32_t* hist = u32(L.hist) + (static_cast<size_t>(r) * kPasses << kDigitBits);
+    int64_t* const in = keys[kPasses & 1];
+    const int32_t* act_in = r > 0 ? act[r & 1] : nullptr;
+    bwt_keys<<<tiles_of(n), kThreads, 0, st>>>(block, n, i32(L.rank), act_in, h, gate, in, hist);
     if (cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
-    if (int rc = tpubz::bitonic_run_i64(s.keys, s.positions, P, plan, plan_len, &pass_launches,
-                                        done, st)) {
+    if (int rc = tpubz::radix::enqueue_passes(in, keys, kKeyLo, kKeyHi, hist, u32(L.status),
+                                              u32(L.tickets) + r * tpubz::radix::kMaxPasses, r,
+                                              gate, tiles_of(n), &pass_launches, st)) {
       return rc;
     }
-    bwt_rerank_count<<<tiles, kThreads, 0, st>>>(s.keys, n, done, s.tile_counts);
+    const int rtiles = blocks_for(n, kRankTile);
+    bwt_rank_tiles<<<rtiles, kThreads, 0, st>>>(keys[0], r, gate, i32(L.agg));
     if (cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
-    bwt_rerank<<<tiles, kThreads, 0, st>>>(s.keys, s.positions, n, s.tile_counts, r, s.distinct,
-                                           s.done, pinned_on_card, s.rank);
+    bwt_rank_apply<<<rtiles, kThreads, 0, st>>>(keys[0], n, r, gate, i32(L.agg), i32(L.rank),
+                                                i32(L.sa), act[(r + 1) & 1], m_state, done,
+                                                pinned_on_card);
     if (cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
     own_launches += 3;
     return static_cast<int>(cudaEventRecord(events.ev[r & 1], st));
@@ -374,7 +424,8 @@ int enqueue_bwt(const uint8_t* block, int n, int N, void* scratch, int scratch_b
   };
 
   if (int rc = enqueue_round(0)) return rc;
-  int r = 0, distinct = 0, prev = -1;
+  int r = 0;
+  long long active_sorted = n;
   for (;;) {
     const bool ahead = r + 1 < cap;
     if (ahead) {
@@ -383,30 +434,18 @@ int enqueue_bwt(const uint8_t* block, int n, int N, void* scratch, int scratch_b
     const auto t_wait = Clock::now();
     if (cudaError_t e = cudaEventSynchronize(events.ev[r & 1])) return static_cast<int>(e);
     wait_us += us_since(t_wait);
-    distinct = static_cast<volatile int*>(pinned)[r];
-    if (distinct == n || distinct == prev) break;
+    const volatile int* words = static_cast<volatile int*>(pinned) + kPinnedPerRound * r;
+    const int m_after = words[0];
+    if (m_after == 0 || words[2] == 0) break;
     if (!ahead) return -1;
-    prev = distinct;
+    active_sorted += m_after;
     ++r;
   }
   stats[0] = r + 1;
-
-  if (distinct == n) {
-    bwt_last_column<<<blocks_for(N), kThreads, 0, st>>>(block, s.rank, n, N, out_last, out_key);
-    ++own_launches;
-    stats[6] = us_since(t_call);
-    return static_cast<int>(cudaGetLastError());
-  }
-  if (cudaError_t e = cudaMemsetAsync(out_key, 0, sizeof(int64_t), st)) return static_cast<int>(e);
-  bwt_tie_keys<<<blocks_for(P), kThreads, 0, st>>>(s.rank, n, P, s.keys, out_key);
-  if (cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
-  if (int rc = tpubz::bitonic_run_i64(s.keys, nullptr, P, plan, plan_len, &pass_launches, nullptr,
-                                      st)) {
-    return rc;
-  }
-  stats[1] = 1;
-  bwt_tie_gather<<<blocks_for(N), kThreads, 0, st>>>(block, s.keys, n, N, out_last);
-  own_launches += 2;
+  stats[3] = static_cast<int>(active_sorted);
+  bwt_last_column<<<blocks_for(N, kThreads), kThreads, 0, st>>>(block, i32(L.sa), i32(L.rank), n,
+                                                                N, out_last, out_key);
+  ++own_launches;
   stats[6] = us_since(t_call);
   return static_cast<int>(cudaGetLastError());
 }
@@ -415,42 +454,41 @@ int enqueue_bwt(const uint8_t* block, int n, int N, void* scratch, int scratch_b
 
 // What a call for a block of n bytes needs, so that no caller repeats the
 // layout: sizes[0] the scratch's bytes, sizes[1] the pinned int32 words,
-// sizes[2] the round cap. Returns 0.
+// sizes[2] the round cap, sizes[3] the radix passes a round runs. Returns 0.
 extern "C" int tpubz_bwt_sizes(int n, int* sizes) {
-  int P = 1;
-  while (P < n) P <<= 1;
-  sizes[0] = static_cast<int>(scratch_bytes(P));
-  sizes[1] = kMaxRounds;
-  sizes[2] = round_cap(n);
+  const int cap = round_cap(n);
+  sizes[0] = static_cast<int>(Layout(n, cap).bytes);
+  sizes[1] = kPinnedPerRound * kMaxRounds;
+  sizes[2] = cap;
+  sizes[3] = kPasses;
   return 0;
 }
 
 // Enqueues the whole BWT of data[:n] on `stream` and returns when the last
-// column is enqueued (it waits for each round's class count, one round
-// behind the card, asleep on the round's event).
+// column is enqueued (it waits for each round's state, one round behind the
+// card, asleep on the round's event).
 //   data: device uint8[N], 1 <= n <= N, n <= 2^20. scratch: device memory
 //   of at least the bytes tpubz_bwt_sizes gives, 256-byte aligned. pinned:
 //   page-locked host int32 words, as many as tpubz_bwt_sizes gives, that the
-//   card can address (cudaHostGetDevicePointer). plan: the encoded plan
-//   (bitonic.py:encode) of the full sort of P keys, P the next power of two
-//   >= n, run with the positions as payload in the rounds and keys only for
-//   the tied last column. key: device int64; last: device uint8[N].
-//   stats (out, 7 ints): rounds run, keys-only sorts, launches of the
-//   bitonic pass kernels (a skipped round's included), launches of this
-//   file's kernels, and the host's microseconds in the call: enqueueing
-//   rounds, waiting for events, in all.
+//   card can address (cudaHostGetDevicePointer); round r leaves its next
+//   active count, its classes and its split flag at 3r, 3r + 1, 3r + 2.
+//   key: device int64; last: device uint8[N].
+//   stats (out, 7 ints): rounds run, launches of this file's kernels, launches
+//   of the radix passes (a skipped round's included), the active rotations
+//   sorted (the sum over the rounds run), and the host's microseconds in the
+//   call: enqueueing rounds, waiting for events, in all.
 // Returns cudaGetLastError() as an int, 0 on success, or -1 when the sort
 // had not converged at the round cap (which no input can cause). After any
 // other return than 0 the stream has been drained: a round enqueued ahead
 // may still have been writing the scratch and the pinned words, which the
 // caller is now free to release.
 extern "C" int tpubz_bwt_forward(const void* data, int n, int N, void* scratch,
-                                 int scratch_bytes_given, int* pinned, const int* plan,
-                                 int plan_len, void* key, void* last, int* stats, void* stream) {
+                                 int scratch_bytes_given, int* pinned, void* key, void* last,
+                                 int* stats, void* stream) {
   const auto st = static_cast<cudaStream_t>(stream);
   const int rc = enqueue_bwt(static_cast<const uint8_t*>(data), n, N, scratch,
-                             scratch_bytes_given, pinned, plan, plan_len,
-                             static_cast<int64_t*>(key), static_cast<uint8_t*>(last), stats, st);
+                             scratch_bytes_given, pinned, static_cast<int64_t*>(key),
+                             static_cast<uint8_t*>(last), stats, st);
   if (rc != 0) cudaStreamSynchronize(st);
   return rc;
 }

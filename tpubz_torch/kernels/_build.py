@@ -42,12 +42,18 @@ SIGNATURES = {
     # keys, payload or None, n, plan, len(plan), launched (out), stream
     "tpubz_bitonic_run_i32": [_P, _P, ctypes.c_int, _INTS, ctypes.c_int, _INTS, _P],
     "tpubz_bitonic_run_i64": [_P, _P, ctypes.c_int, _INTS, ctypes.c_int, _INTS, _P],
-    # data, n, N, scratch, its bytes, pinned host int32 words, sort plan,
-    # len(plan), key, last, stats (out, 7 ints), stream
-    "tpubz_bwt_forward": [_P, ctypes.c_int, ctypes.c_int, _P, ctypes.c_int, _P, _INTS,
-                          ctypes.c_int, _P, _P, _INTS, _P],
-    # n, sizes (out, 3 ints: scratch bytes, pinned words, round cap)
+    # data, n, N, scratch, its bytes, pinned host int32 words, key, last,
+    # stats (out, 7 ints), stream
+    "tpubz_bwt_forward": [_P, ctypes.c_int, ctypes.c_int, _P, ctypes.c_int, _P, _P, _P, _INTS,
+                          _P],
+    # n, sizes (out, 4 ints: scratch bytes, pinned words, round cap, radix
+    # passes a round)
     "tpubz_bwt_sizes": [ctypes.c_int, _INTS],
+    # keys, out, n, lo bit, hi bit, scratch, its bytes, launched (out), stream
+    "tpubz_radix_sort": [_P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, ctypes.c_int,
+                         _INTS, _P],
+    # n, sizes (out, 2 ints: scratch bytes, digit bits)
+    "tpubz_radix_sizes": [ctypes.c_int, _INTS],
 }
 
 _lock = threading.Lock()

@@ -1,41 +1,45 @@
-"""Rotation suffix sort (BWT forward) by prefix doubling, on the bitonic sort.
+"""Rotation suffix sort (BWT forward) by prefix doubling that drops sorted
+rotations, on the radix sort.
 
 The counterpart of ``tpubz/kernels/suffix_sort.py:bwt_forward``, with the
 same contract: ``key`` is the number of rotations strictly smaller than
 rotation 0, ``last[:n]`` is the BWT last column (periodic inputs included)
-and the pad lanes are zero. The JAX package runs this outside any Pallas
-kernel, as XLA sorts.
+and the pad lanes are zero. Only those outputs are held to tpubz; the
+algorithm inside is this card's. The JAX package runs its version outside
+any Pallas kernel, as XLA sorts.
 
 For a CUDA tensor ``bwt_forward`` is one call into the kernel library
-(``csrc/bwt.cu``): it enqueues the seed keys, every doubling round (key
-build, the bitonic sort of ``csrc/bitonic.cu``, re-rank), the stop test and
-the last column on the current stream, with no torch op and no Python
-between the kernels; the host follows the class counts one round behind the
-card through a pinned word. For a CPU tensor it runs the plain torch version
-``bwt_forward_ref``, whose sorts are the plain bitonic network, over the
-first n lanes padded to P, the next power of two.
+(``csrc/bwt.cu``): it enqueues every doubling round (keys and their digit
+histogram, the radix passes of ``csrc/radix.cuh``, the re-rank and the
+compaction of the next round's rotations), the stop test and the last
+column on the current stream, with no torch op and no Python between the
+kernels; the host follows each round's state one round behind the card
+through pinned words. For a CPU tensor it runs the plain torch version
+``bwt_forward_ref``, the same formulation on ``radix.radix_sort_ref``.
 
-Differences from the TPU formulation, which avoided gathers and scatters
-(both versions):
-  - 2-ary doubling on one packed int64 key per round, (rank[i] << 32) |
-    rank[(i+k) mod n], instead of a 4-key variadic sort. The seed rank packs
-    three bytes (24 bits) and later ranks are dense (< n < 2^20), so the key
-    fits 56 bits and the pad key INT64_MAX sorts after every real one. The
-    payload is the position; the sort is not stable, which the round does
-    not need: equal keys get equal new ranks whatever their order;
-  - the mod-n shift is a gather at (i+k) % n and no pad rank is needed;
-  - the rank write-back to position order is a scatter ``rank[order] = ...``;
-  - the stop test follows the class count round by round: stop when every
-    rotation is its own class, or when a round leaves the count (and so the
-    partition, since classes only split) unchanged, which is the fixpoint of
-    periodic blocks. The plain version reads the count to the host each
-    round; the kernels keep it in a device record and never wait for the
-    host;
-  - the last column: when every rotation is its own class, rank is a
-    permutation and last[rank[(j+1) mod n]] = block[j] is one scatter (the
-    kernels); with ties, and always in the plain version, a keys-only sort
-    of the unique keys (rank[(j+1) mod n] << 20) | j, stable by
-    rank[(j+1) mod n].
+The formulation (both versions):
+  - ranks are group starts: rank[i] is the number of rotations in classes
+    strictly smaller than i's class, so a rotation alone in its class holds
+    its final position and no later round changes it. sa[slot] holds the
+    positions in slot order; a class of size s keeps the slots [g, g + s);
+  - round 0 sorts all n rotations by their first SEED_BYTES cyclic bytes,
+    key (bytes << 20) | i. Round r >= 1, with h = SEED_BYTES * 2^(r-1) mod n,
+    sorts only the active rotations, the members of classes of size >= 2,
+    by key rank[i] << 40 | rank[(i + h) mod n] << 20 | i. Bits 20-59 are
+    sorted; the position rides in bits 0-19 (n <= 2^20), so there is no
+    payload, and the sort need not be stable for the round's sake;
+  - the re-rank reads the sorted active keys: a head is a key whose bits
+    20-59 differ from the key before it. Key q's slot is its class's g plus
+    q's offset within the class; its new rank is its head's slot. rank[i]
+    and sa[slot] are written, and the members of new classes of size >= 2
+    are compacted, in sorted order, into the next round's active list;
+  - the call stops after a round that leaves no active rotation, or after a
+    round in which no active class split: then the partition at 2h equals
+    the one at h, a fixpoint that periodic blocks reach, and each class left
+    is a set of identical rotations;
+  - the last column is one gather, last[p] = block[(sa[p] + n - 1) mod n]:
+    identical rotations share their last byte, so any order inside a class
+    gives the same column; key = rank[0], the group start of rotation 0.
 """
 from __future__ import annotations
 
@@ -44,18 +48,23 @@ import threading
 
 import torch
 
-from . import _build, bitonic
-from .bitonic import MAX_LOG2, bitonic_1op, bitonic_2op
+from . import _build, radix
+from .radix import radix_sort_ref
 
-INT64_MAX = torch.iinfo(torch.int64).max
+MAX_LOG2 = 20
 POS_MASK = (1 << MAX_LOG2) - 1
+SEED_BYTES = 5
+KEY_LO, KEY_HI = MAX_LOG2, 3 * MAX_LOG2  # the sorted bits of a round's key
 
 # calls into the kernel library's BWT in this process, one per block (CPU
-# calls are not counted), and the doubling rounds those calls ran
+# calls are not counted), the doubling rounds those calls ran and the
+# active rotations they sorted (the sum over rounds of each round's count)
 LAUNCHES = 0
 ROUNDS_RUN = 0
-# the same calls' kernel launches outside the sorts (three a round enqueued,
-# one or two for the last column)
+ACTIVE_SORTED = 0
+# the same calls' launches of csrc/bwt.cu's own kernels (three a round
+# enqueued, the last column once); the radix passes are counted in
+# radix.PASS_LAUNCHES
 KERNEL_LAUNCHES = 0
 # the host's microseconds inside those calls: enqueueing rounds, waiting for
 # a round's event (asleep, so the thread's core is free for the emit threads
@@ -64,38 +73,82 @@ HOST_US = {"enqueue": 0, "wait": 0, "call": 0}
 _launch_lock = threading.Lock()
 
 
-def padded_length(n: int) -> int:
-    """P: the next power of two >= n (n >= 1)."""
-    return 1 << (n - 1).bit_length()
+def seed_keys(block: torch.Tensor) -> torch.Tensor:
+    """Round 0's keys, (the SEED_BYTES cyclic bytes at i) << 20 | i: int64[n]."""
+    n = block.shape[0]
+    b = block.to(torch.int64)
+    i = torch.arange(n, device=block.device)
+    packed = torch.zeros(n, dtype=torch.int64, device=block.device)
+    for q in range(SEED_BYTES):
+        packed = (packed << 8) | b[(i + q) % n]
+    return (packed << MAX_LOG2) | i
 
 
-def _pad(keys: torch.Tensor, P: int) -> torch.Tensor:
-    out = torch.full((P,), INT64_MAX, dtype=torch.int64, device=keys.device)
-    out[: keys.shape[0]] = keys
-    return out
+def _rerank(skeys: torch.Tensor, r: int, rank: torch.Tensor, sa: torch.Tensor):
+    """Round r's re-rank of its sorted active keys into rank and sa. Returns
+    the next round's active positions and whether an active class split."""
+    m = skeys.shape[0]
+    q = torch.arange(m, device=skeys.device)
+    pos = skeys & POS_MASK
+    hi = skeys >> KEY_LO
+    g = skeys >> (2 * MAX_LOG2) if r else torch.zeros_like(skeys)
+    head = torch.ones(m, dtype=torch.bool, device=skeys.device)
+    head[1:] = hi[1:] != hi[:-1]
+    gstart = torch.ones_like(head)
+    gstart[1:] = g[1:] != g[:-1]
+    first = torch.cummax(torch.where(gstart, q, 0), 0).values  # the class's first index
+    headq = torch.cummax(torch.where(head, q, 0), 0).values
+    rank[pos] = g + headq - first
+    sa[g + q - first] = pos
+    alone = head.clone()
+    alone[:-1] &= head[1:]
+    return pos[~alone], int(head.sum()) > int(gstart.sum())
 
 
-def _shifted(r: torch.Tensor, k: int) -> torch.Tensor:
-    n = r.shape[0]
-    return r[(torch.arange(n, device=r.device) + k) % n]
+def _doubling(block: torch.Tensor):
+    """The plain version's rounds: yields (r, keys, rank, sa) after each
+    round's re-rank, until the stop rule holds."""
+    n = block.shape[0]
+    rank = torch.zeros(n, dtype=torch.int64, device=block.device)
+    sa = torch.zeros(n, dtype=torch.int64, device=block.device)
+    r = 0
+    while True:
+        if r == 0:
+            keys = seed_keys(block)
+        else:
+            h = (SEED_BYTES << (r - 1)) % n
+            keys = (rank[act] << (2 * MAX_LOG2)) | (rank[(act + h) % n] << MAX_LOG2) | act
+        act, split = _rerank(radix_sort_ref(keys, KEY_LO, KEY_HI, radix.DIGIT_BITS), r, rank, sa)
+        yield r, keys, rank, sa
+        if act.numel() == 0 or not split:
+            return
+        r += 1
 
 
-def seed_rank(block: torch.Tensor) -> torch.Tensor:
-    """int64 rank of each rotation's first three bytes (24 bits)."""
-    d0 = block.to(torch.int64)
-    return (d0 << 16) | (_shifted(d0, 1) << 8) | _shifted(d0, 2)
+def round_keys(block: torch.Tensor, r: int) -> torch.Tensor:
+    """The unsorted keys of round r of a block's BWT (the plain version's,
+    on the block's device): int64[active rotations of round r]."""
+    for rr, keys, _, _ in _doubling(block):
+        if rr == r:
+            return keys
+    raise ValueError(f"the block's BWT stops before round {r}")
 
 
-def round_keys(rank: torch.Tensor, k: int) -> torch.Tensor:
-    """A doubling round's sort keys, padded to P with INT64_MAX: int64[P]."""
-    return _pad((rank << 32) | _shifted(rank, k), padded_length(rank.shape[0]))
+def round_cap(n: int) -> int:
+    """One more than the most doubling rounds a block of n bytes can run:
+    round r compares SEED_BYTES * 2^r bytes, and once that covers n the
+    next round leaves no rotation or splits no class."""
+    c = 0
+    while SEED_BYTES << c < n:
+        c += 1
+    return c + 2
 
 
-def call_sizes(n: int) -> tuple[int, int, int]:
-    """(scratch bytes, pinned int32 words, round cap) of the library call
-    for a block of n bytes: csrc/bwt.cu alone knows its scratch's layout.
-    The cap is one more than the most doubling rounds the block can run."""
-    sizes = (ctypes.c_int * 3)()
+def call_sizes(n: int) -> tuple[int, int, int, int]:
+    """(scratch bytes, pinned int32 words, round cap, radix passes a round)
+    of the library call for a block of n bytes: csrc/bwt.cu alone knows its
+    scratch's layout and its sort's digits."""
+    sizes = (ctypes.c_int * 4)()
     _build.load().tpubz_bwt_sizes(n, sizes)
     return tuple(sizes)
 
@@ -110,33 +163,10 @@ def bwt_forward_ref(data: torch.Tensor, n: int) -> tuple[torch.Tensor, torch.Ten
     if n > 1 << MAX_LOG2:
         raise ValueError(f"bwt_forward takes n <= 2^{MAX_LOG2}, got {n}")
     block = data[:n]
-    positions = torch.arange(padded_length(n), dtype=torch.int32, device=dev)
-    rank = seed_rank(block)
-    k = 3
-    prev_distinct = -1
-    while True:
-        skey, order = bitonic_2op(round_keys(rank, k), positions)
-        skey = skey[:n]
-        new_sorted = torch.zeros(n, dtype=torch.int64, device=dev)
-        torch.cumsum(skey[1:] != skey[:-1], 0, out=new_sorted[1:])
-        distinct = int(new_sorted[-1]) + 1
-        if distinct == prev_distinct:
-            break  # fixpoint: rank already encodes this partition
-        rank = torch.empty_like(rank)
-        rank[order[:n].long()] = new_sorted
-        if distinct == n:
-            break
-        prev_distinct = distinct
-        k *= 2
-    # ties left in rank are classes of identical rotations (periodic blocks):
-    # they share their last byte, so an order by the next rotation's rank,
-    # ties in j order, gives the true last column. rank is dense (< n <=
-    # 2^20), so (rank << 20) | j is unique and orders exactly so.
-    key = (rank < rank[0]).sum()
-    j = torch.arange(n, dtype=torch.int64, device=dev)
-    col = bitonic_1op(_pad((_shifted(rank, 1) << MAX_LOG2) | j, padded_length(n)))
-    last[:n] = block[col[:n] & POS_MASK]
-    return key, last
+    for _, _, rank, sa in _doubling(block):
+        pass
+    last[:n] = block[(sa + n - 1) % n]
+    return rank[0].clone(), last
 
 
 def bwt_forward(data: torch.Tensor, n: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -144,9 +174,9 @@ def bwt_forward(data: torch.Tensor, n: int) -> tuple[torch.Tensor, torch.Tensor]
     uint8[N]): key is a 0-d int64 tensor on data's device. A CUDA tensor
     makes one call into the kernel library on the current stream or raises;
     a CPU tensor runs the plain version. The call returns once the last
-    column is enqueued: it reads each round's class count, never ``key`` or
+    column is enqueued: it reads each round's state, never ``key`` or
     ``last``."""
-    global LAUNCHES, ROUNDS_RUN, KERNEL_LAUNCHES
+    global LAUNCHES, ROUNDS_RUN, ACTIVE_SORTED, KERNEL_LAUNCHES
     dev = data.device
     if dev.type == "cpu":
         return bwt_forward_ref(data, n)
@@ -163,29 +193,28 @@ def bwt_forward(data: torch.Tensor, n: int) -> tuple[torch.Tensor, torch.Tensor]
         return (torch.zeros((), dtype=torch.int64, device=dev),
                 torch.zeros(N, dtype=torch.uint8, device=dev))
     # one set of buffers per call: encoders are shared between threads
-    nbytes, words, cap = call_sizes(n)
+    nbytes, words, cap, _ = call_sizes(n)
     scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     pinned = torch.empty(words, dtype=torch.int32, pin_memory=True)
     key = torch.empty((), dtype=torch.int64, device=dev)
     last = torch.empty(N, dtype=torch.uint8, device=dev)
-    plan, plan_len = bitonic._sort_plan(padded_length(n).bit_length() - 1, bitonic.TILE_LOG2,
-                                        bitonic.REGS_LOG2, bitonic.FUSE)
     stats = (ctypes.c_int * 7)()
     lib = _build.load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.tpubz_bwt_forward(data.data_ptr(), n, N, scratch.data_ptr(), nbytes,
-                                   pinned.data_ptr(), plan, plan_len, key.data_ptr(),
-                                   last.data_ptr(), stats, stream)
+                                   pinned.data_ptr(), key.data_ptr(), last.data_ptr(), stats,
+                                   stream)
     if rc == -1:
         raise RuntimeError(f"tpubz_bwt_forward: no fixpoint after {cap} rounds, n={n}")
     if rc != 0:
         raise RuntimeError(f"tpubz_bwt_forward launch failed: CUDA error {rc}")
-    rounds, tied_sorts, pass_launches, own_launches, *host_us = stats
-    bitonic.count_sorts(rounds, tied_sorts, pass_launches)
+    rounds, own_launches, pass_launches, active, *host_us = stats
+    radix.count_sorts(rounds, pass_launches)
     with _launch_lock:
         LAUNCHES += 1
         ROUNDS_RUN += rounds
+        ACTIVE_SORTED += active
         KERNEL_LAUNCHES += own_launches
         for name, us in zip(HOST_US, host_us):
             HOST_US[name] += us

@@ -50,7 +50,7 @@ import json, sys, time
 import numpy as np
 import torch
 from tpubz_torch.corpus import edge_blocks, mixed_corpus
-from tpubz_torch.kernels import bitonic, suffix_sort
+from tpubz_torch.kernels import bitonic
 from tpubz_torch.stage_probe import bwt_stage_times
 
 def ms(fn, reps=20):
@@ -72,7 +72,15 @@ dev = torch.device("cuda")
 n0 = 900_000
 padded = torch.zeros(1 << 20, dtype=torch.uint8, device=dev)
 padded[:n0] = torch.frombuffer(bytearray(corpus[:n0]), dtype=torch.uint8).to(dev)
-k64 = suffix_sort.round_keys(suffix_sort.seed_rank(padded[:n0]), 3)
+# the BWT's round-0 keys of the block, built here from the bytes (five
+# cyclic bytes << 20 | position), padded with INT64_MAX: both trees run it
+blk = padded[:n0].long()
+at = torch.arange(n0, device=dev)
+packed = torch.zeros(n0, dtype=torch.int64, device=dev)
+for q in range(5):
+    packed = (packed << 8) | blk[(at + q) % n0]
+k64 = torch.full((1 << 20,), torch.iinfo(torch.int64).max, dtype=torch.int64, device=dev)
+k64[:n0] = (packed << 20) | at
 pos = torch.arange(1 << 20, dtype=torch.int32, device=dev)
 rng = np.random.default_rng(SEED)
 k32 = torch.from_numpy(rng.integers(0, 50, 1 << 20).astype(np.int32)).to(dev)
@@ -108,6 +116,19 @@ def _cuda_ms(fn, reps=20):
     return start.elapsed_time(stop) / reps
 
 
+def _bwt_keys(block):
+    """The BWT's round-0 keys of a block (suffix_sort.round_keys), padded to
+    2^20 with INT64_MAX for the bitonic sorts."""
+    import torch
+
+    from .kernels import suffix_sort
+
+    keys = torch.full((1 << 20,), torch.iinfo(torch.int64).max, dtype=torch.int64,
+                      device=block.device)
+    keys[: block.shape[0]] = suffix_sort.round_keys(block, 0)
+    return keys
+
+
 def sweep() -> list[dict]:
     """Sort ms and launches per plan shape, each output held against the
     default plan's."""
@@ -115,13 +136,13 @@ def sweep() -> list[dict]:
     import torch
 
     from .corpus import mixed_corpus
-    from .kernels import bitonic, suffix_sort
+    from .kernels import bitonic
 
     dev = torch.device("cuda")
     n0 = 900_000
     padded = torch.zeros(1 << 20, dtype=torch.uint8, device=dev)
     padded[:n0] = torch.frombuffer(bytearray(mixed_corpus(1, SEED)[:n0]), dtype=torch.uint8).to(dev)
-    k64 = suffix_sort.round_keys(suffix_sort.seed_rank(padded[:n0]), 3)
+    k64 = _bwt_keys(padded[:n0])
     pos = torch.arange(1 << 20, dtype=torch.int32, device=dev)
     rng = np.random.default_rng(SEED)
     k32 = torch.from_numpy(rng.integers(0, 50, 1 << 20).astype(np.int32)).to(dev)
@@ -164,13 +185,13 @@ def profile() -> dict:
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     from .corpus import mixed_corpus
-    from .kernels import bitonic, suffix_sort
+    from .kernels import bitonic
 
     dev = torch.device("cuda")
     n0 = 900_000
     padded = torch.zeros(1 << 20, dtype=torch.uint8, device=dev)
     padded[:n0] = torch.frombuffer(bytearray(mixed_corpus(1, SEED)[:n0]), dtype=torch.uint8).to(dev)
-    k64 = suffix_sort.round_keys(suffix_sort.seed_rank(padded[:n0]), 3)
+    k64 = _bwt_keys(padded[:n0])
     pos = torch.arange(1 << 20, dtype=torch.int32, device=dev)
     launches = bitonic.plan(bitonic.network(20), 20)
     records = [x[:4] if x[0] == "global" else ("tile", x[1], x[2], len(x[3])) for x in launches]
@@ -199,13 +220,13 @@ def anatomy(tile_log2: int = 13, regs_log2: int = 4) -> dict:
     import torch
 
     from .corpus import mixed_corpus
-    from .kernels import bitonic, suffix_sort
+    from .kernels import bitonic
 
     dev = torch.device("cuda")
     n0 = 900_000
     padded = torch.zeros(1 << 20, dtype=torch.uint8, device=dev)
     padded[:n0] = torch.frombuffer(bytearray(mixed_corpus(1, SEED)[:n0]), dtype=torch.uint8).to(dev)
-    k64 = suffix_sort.round_keys(suffix_sort.seed_rank(padded[:n0]), 3)
+    k64 = _bwt_keys(padded[:n0])
     pos = torch.arange(1 << 20, dtype=torch.int32, device=dev)
     t, R = tile_log2, regs_log2
     high = tuple(range(t - R, t))

@@ -19,7 +19,7 @@ mixed corpus plus the edge blocks (``tpubz_torch.corpus``, as
 - ``profile``: one device-only stream per stage under ``torch.profiler``:
   wall ms, device busy ms (the union of kernel and copy intervals), the
   idle share, the kernels with the most device time, and the device ms and
-  launches of each bitonic kernel (the BWT's sorts);
+  launches of each of the BWT's kernels (its own and the radix passes);
 - ``window``: device-only full-stage stream MB/s for each ordered-drain
   window, and of the native host engine (``compress_cpu``), in turns;
 - ``routes``: stream MB/s of the device-only ``full`` and ``bwt`` stages,
@@ -34,23 +34,27 @@ mixed corpus plus the edge blocks (``tpubz_torch.corpus``, as
   and one ``rle2_encode`` call launch on the corpus's first block, from
   ``torch.profiler``;
 - ``bwt_anatomy`` (alone with ``--mode bwt_anatomy``): of one
-  ``bwt_forward`` call on the corpus's first block, the device microseconds
-  and launches of each kernel (the BWT's own and the two bitonic pass
-  kernels) and per sort, from ``torch.profiler``; the same for one
-  ``bitonic_1op``, one ``bitonic_2op`` and one two-pass ``stage_passes``
-  call at 2^20; per block of the data the doubling rounds, the keys-only
-  sorts, the call's ms and the host's microseconds in it (enqueueing
+  ``bwt_forward`` call on the corpus's first block, the device
+  microseconds and launches of each kernel (``bwt_keys``,
+  ``radix_pass``, ``bwt_rank_tiles``, ``bwt_rank_apply``,
+  ``bwt_last_column``), per round and per radix pass, from
+  ``torch.profiler``; the same for one ``radix_sort`` of the block's
+  900,000 round-0 keys at each width, ``torch.sort`` of them, and one
+  ``bitonic_1op``, ``bitonic_2op`` and two-pass ``stage_passes`` call at
+  2^20; per block of the data the doubling rounds, the active rotations
+  sorted, the call's ms and the host's microseconds in it (enqueueing
   rounds, waiting for a round's event); the host ms of the MTF and RLE2
-  stages after the library call and after the plain version; and for one device-only stream per stage, with
-  no profiler, the wall, the sum of each block's span on the card (CUDA
-  events before its first kernel and after its copies are enqueued) and the
-  share of the wall outside those spans;
+  stages after the library call and after the plain version; and for one
+  device-only stream per stage, with no profiler, the wall, the sum of each
+  block's span on the card (CUDA events before its first kernel and after
+  its copies are enqueued) and the share of the wall outside those spans;
 - ``turns``: with ``--parent``, from a fresh process of the parent's tree
   and of this one in the order parent, this, this, parent (``--reps``
   times): ``bwt_forward``, ``mtf_ranks`` and ``rle2_encode`` ms on the
   corpus's first block (CUDA events, 20 calls back to back) and their
-  device time (``torch.profiler``, one call), ``stages``, ``bwt_stages``
-  and ``routes`` (two rounds), each turn with a fresh rig profile. The
+  device time (``torch.profiler``, one call), ``stages``, ``bwt_stages``,
+  ``routes`` (two rounds) and one profiled device-only stream per stage
+  (wall, device busy, idle share), each turn with a fresh rig profile. The
   parent is any checkout of the port, such as a ``git archive`` of an
   earlier commit unpacked into a directory that ``.gitignore`` lists.
 """
@@ -82,6 +86,8 @@ from .stream import api
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WINDOWS = (2, 5, 28)
+# the kernels of one bwt_forward call (csrc/bwt.cu, csrc/radix.cuh)
+BWT_KERNELS = ("bwt_keys", "radix_pass", "bwt_rank_tiles", "bwt_rank_apply", "bwt_last_column")
 HYBRID_WINDOWS = (5, 16, 28)
 
 
@@ -213,8 +219,8 @@ def profile_stream(data: bytes, level: int, device, stage: str = "full") -> dict
         "idle_share": 1 - busy_ms / wall if dev else None,
         "device_events": len(dev),
         "top_kernels": [{"name": k[:120], "ms": ms, "count": c} for k, (ms, c) in top],
-        "bitonic_kernels": [{"name": k[:120], "ms": ms, "count": c}
-                            for k, (ms, c) in by_name.items() if "bitonic" in k],
+        "bwt_kernels": [{"name": k[:120], "ms": ms, "count": c} for k, (ms, c) in by_name.items()
+                        if any(w in k for w in BWT_KERNELS)],
     }
 
 
@@ -399,25 +405,47 @@ def stream_spans(data: bytes, level: int, stage: str, device="cuda") -> dict:
             "outside_spans_share": 1 - span / wall}
 
 
+def _by_kernel(call: dict) -> dict:
+    """A _device_us result's microseconds and launches summed by kernel
+    (the names of BWT_KERNELS; template arguments folded)."""
+    out = {}
+    for name, us in call["kernels_us"].items():
+        key = next((k for k in BWT_KERNELS if k in name), name)
+        n = call["kernels_launches"][name]
+        prev = out.get(key, {"us": 0.0, "launches": 0})
+        out[key] = {"us": prev["us"] + us, "launches": prev["launches"] + n}
+    return out
+
+
 def bwt_anatomy(data: bytes) -> dict:
     """Where one BWT call's device time goes (on the first 900,000 bytes of
-    ``data``), how many rounds each level-9 block of ``data`` runs, and how
-    much of a device-only stream's wall lies outside its blocks' spans on
-    the card."""
-    from .kernels import bitonic, suffix_sort
+    ``data``), what the radix sort, the sorts it replaced and its yardstick take on the same keys, how many rounds and
+    active rotations each level-9 block of ``data`` runs, and how much of a
+    device-only stream's wall lies outside its blocks' spans on the card."""
+    from .kernels import bitonic, radix, suffix_sort
 
     n = 900_000
     padded = torch.zeros(block_n(9), dtype=torch.uint8, device="cuda")
     padded[:n] = torch.frombuffer(bytearray(data[:n]), dtype=torch.uint8).to("cuda")
-    before = suffix_sort.ROUNDS_RUN
+    before = (suffix_sort.ROUNDS_RUN, suffix_sort.ACTIVE_SORTED)
     bwt_forward(padded, n)
-    rounds = suffix_sort.ROUNDS_RUN - before
+    rounds, active = (suffix_sort.ROUNDS_RUN - before[0], suffix_sort.ACTIVE_SORTED - before[1])
     call = _device_us(lambda: bwt_forward(padded, n))
-    sorts_us = sum(us for k, us in call["kernels_us"].items() if "bitonic" in k)
-    k64 = suffix_sort.round_keys(suffix_sort.seed_rank(padded[:n]), 3)
+    kernels = _by_kernel(call)
+    passes = kernels.get("radix_pass", {"us": 0.0, "launches": 0})
+    block0 = {"rounds": rounds, "active_rotations_sorted": active, "call": call,
+              "by_kernel": kernels, "us_per_round": call["sum_us"] / rounds,
+              "launches_per_round": call["launches"] / rounds,
+              "us_per_radix_pass": passes["us"] / max(passes["launches"], 1)}
+    k0 = suffix_sort.round_keys(padded[:n], 0)
+    lo, hi = suffix_sort.KEY_LO, suffix_sort.KEY_HI
+    k64 = torch.full((1 << 20,), torch.iinfo(torch.int64).max, dtype=torch.int64, device="cuda")
+    k64[:n] = k0
     pos = torch.arange(k64.shape[0], dtype=torch.int32, device="cuda")
-    k32 = k64.to(torch.int32)
+    k32 = (k64 >> 40).to(torch.int32)
     sorts = {
+        "radix_sort": _device_us(lambda: radix.radix_sort(k0, lo, hi)),
+        "torch_sort": _device_us(lambda: torch.sort(k0)),
         "bitonic_1op_i64": _device_us(lambda: bitonic.bitonic_1op(k64)),
         "bitonic_2op_i64": _device_us(lambda: bitonic.bitonic_2op(k64, pos)),
         "bitonic_2op_i32": _device_us(lambda: bitonic.bitonic_2op(k32, pos)),
@@ -427,10 +455,11 @@ def bwt_anatomy(data: bytes) -> dict:
     per_block = []
     for blk, _ in _blocks(data, 9):
         dev = enc.upload(blk)
-        c0 = (suffix_sort.ROUNDS_RUN, bitonic.CALLS["bitonic_1op"], dict(suffix_sort.HOST_US))
+        c0 = (suffix_sort.ROUNDS_RUN, suffix_sort.ACTIVE_SORTED, dict(suffix_sort.HOST_US))
         _, ms = _timed(lambda: bwt_forward(dev, blk.size), "cuda")
         per_block.append({"n": int(blk.size), "rounds": suffix_sort.ROUNDS_RUN - c0[0],
-                          "one_op_sorts": bitonic.CALLS["bitonic_1op"] - c0[1], "call_ms": ms,
+                          "active_rotations_sorted": suffix_sort.ACTIVE_SORTED - c0[1],
+                          "call_ms": ms,
                           "host_us": {k: v - c0[2][k] for k, v in suffix_sort.HOST_US.items()}})
     # the host ms of the stages that follow the BWT, after the library call
     # and after the plain version (many small torch ops, the host busy
@@ -447,10 +476,7 @@ def bwt_anatomy(data: bytes) -> dict:
         "stages_after_bwt_median_ms": {
             name: {k: statistics.median(r[k] for r in rows) for k in ("mtf", "rle2")}
             for name, rows in after.items()},
-        "block0_rounds": rounds,
-        "block0_call": call,
-        "block0_sort_us_per_round": sorts_us / rounds,
-        "block0_own_kernels_us": call["sum_us"] - sorts_us,
+        "block0": block0,
         "sorts": sorts,
         "per_block": per_block,
         "rounds_median": statistics.median(b["rounds"] for b in per_block),
@@ -512,6 +538,10 @@ with tempfile.TemporaryDirectory() as cache, sp.env(TPUBZ_TORCH_CACHE=cache):
     out["stages"] = sp.stage_times(data, 9, "cuda")
     out["bwt_stages"] = sp.bwt_stage_times(data, 9, "cuda")
     routes = sp.route_rates(data, 9, "cuda", reps=2)
+    out["profile"] = {}
+    for stage in ("full", "bwt"):
+        prof = sp.profile_stream(data, 9, "cuda", stage)
+        out["profile"][stage] = {k: prof[k] for k in ("wall_ms", "device_busy_ms", "idle_share")}
 out["routes"] = {k: [{"MBps": r["MBps"], "stage": r["stats"].get("stage"),
                       "dev_blocks": r["stats"].get("dev_blocks"),
                       "cpu_blocks": r["stats"].get("cpu_blocks")} for r in v]
