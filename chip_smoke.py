@@ -26,7 +26,19 @@ file that ends in padding gives. The same data then goes through the bwt stage
 profile ([hybrid], beside compress_cpu), each byte-equal to [path]'s stream
 with its kernel counts read from zero; and the short stream through
 compress_file, open("wb"), BZ2Compressor and python -m tpubz_torch
-([files]), each byte-equal to tpubz_torch.compress. Every phase prints one
+([files]), each byte-equal to tpubz_torch.compress. The multi-process path
+([multihost]) runs this script as two gloo ranks on the one card
+(``--rank R --world W --port P --job PATH``, a TCPStore on a free
+127.0.0.1 port): compress_multihost at level 9 on a 10-block cut of the
+main path's data (corpus blocks, a random block, bytes(range(256)) * 3500,
+a block whose symbols >= 256 overflow the compact form's sidecar, the
+periodic tail), byte-equal to tpubz_torch.compress and compress_cpu,
+round-tripped through decompress_multihost on two ranks and bunzip2, a
+corrupt copy raising on both ranks; each rank must have launched all four
+batched kernels (the batched BWT, MTF and RLE2 and the compact form, held
+before against their plain versions and the one-block kernels on five
+level-9 rows at once) and no one-block kernel; then one rank on the same
+data for its MB/s. Every phase prints one
 line; any failure raises, so the script exits non-zero without the final
 line. Without a CUDA device it exits with code 1 and prints no result.
 
@@ -45,7 +57,10 @@ on the card, which on the main path are the BWT call's, one a round. The
 bitonic sorts (and stage_passes, the launches of the two pass kernels
 bitonic_global and bitonic_tile) left the main path when the BWT moved to
 the radix sort: their main-path launches are 0, and [path] fails if one
-ran. The port imports neither tpubz nor jax, and the run
+ran. The four batched kernels (bwt_batch, mtf_batch, rle2_batch, compact)
+count their calls in the [multihost] phase, both ranks summed; their
+times are at B = 5 level-9 rows. The port imports neither tpubz nor jax,
+and the run
 checks that neither was loaded. The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -198,6 +213,7 @@ def _smoke(tmp):
     chain = chain_kernels(padded, n0, edges, rng)
     chain["bwt"] = bwt_kernels(padded, n0, edges)
     chain["radix"] = radix_kernels(padded, n0, rng)
+    batch = batch_kernels(corpus, edges, rng)
 
     # the bitonic kernels against their plain versions at 2^20, exactly:
     # int32 keys in [0, 50), whose duplicates move payloads by the tie rule;
@@ -365,6 +381,7 @@ def _smoke(tmp):
     stage_bwt(tpubz_torch, data, stream)
     hybrid(tpubz_torch, data, stream, tmp)
     files(tpubz_torch, short, got, tmp)
+    mh_launches = multihost(tpubz_torch, corpus, edges, rng, tmp)
     _no_reference_modules()
 
     # the bitonic sorts' main-path launches: 0 (checked above)
@@ -403,7 +420,23 @@ def _smoke(tmp):
         "bound_ms": times[3][0],
         "bound_by": times[3][1],
         "library_ms": times[2],
-    } for name, replaces, n, times in sorts] + [rows["rle2"]]}), flush=True)
+    } for name, replaces, n, times in sorts] + [rows["rle2"]] + [{
+        "name": name,
+        "route": "cuda",
+        "source": f"tpubz_torch/csrc/{source}",
+        "replaces": replaces,
+        "launches": mh_launches[name],
+        "max_abs_err": batch[name]["max_abs_err"],
+        "ms": batch[name]["ms"],
+        "plain_ms": batch[name]["plain_ms"],
+        "bound_ms": batch[name]["bound"][0],
+        "bound_by": batch[name]["bound"][1],
+        "library_ms": None,
+    } for name, source, replaces in (
+        ("bwt_batch", "bwt.cu", "tpubz/kernels/suffix_sort.py:170"),
+        ("mtf_batch", "mtf.cu", "tpubz/kernels/mtf.py:166"),
+        ("rle2_batch", "rle2.cu", "tpubz/kernels/rle2.py:113"),
+        ("compact", "compact.cu", "tpubz/block/encode.py:99"))]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
     return 0
@@ -615,6 +648,136 @@ def radix_kernels(padded, n0, rng):
             "bound": bound}
 
 
+def _batch_level9_rows(corpus, edges, rng, dev):
+    """The batched kernels' level-9 rows: the corpus's first block, the
+    near-periodic block, bytes(range(256)) * 3500 (tied rotations), random
+    bytes of an odd length (a few thousand symbols >= 256, under the
+    sidecar's cap) and every byte pair in order (65,282 symbols >= 256: the
+    sidecar overflows). (data uint8[5, N] on dev, n, names)."""
+    from tpubz_torch.block.encode import block_n
+    from tpubz_torch.corpus import sidecar_overflow_block
+
+    rows = {"corpus_block0": corpus[:LEVEL * 100_000],
+            "near_periodic": edges["near_periodic"], "all256": edges["all256"],
+            "random_odd": rng.bytes(899_001), "sidecar_overflow": sidecar_overflow_block()}
+    data = torch.zeros(len(rows), block_n(LEVEL), dtype=torch.uint8)
+    for b, row in enumerate(rows.values()):
+        data[b, : len(row)] = torch.frombuffer(bytearray(row), dtype=torch.uint8)
+    return data.to(dev), [len(r) for r in rows.values()], list(rows)
+
+
+def batch_kernels(corpus, edges, rng):
+    """The multi-process path's batched kernels (csrc/bwt.cu's batched call,
+    csrc/mtf.cu and csrc/rle2.cu with the row as a grid dimension,
+    csrc/compact.cu) against their plain versions on the card, exactly, on
+    five level-9 rows at once (_batch_level9_rows); each row also equal to
+    the one-block kernels' output for it. Then each call's ms and the plain
+    version's (CUDA events), its device µs and launches (torch.profiler,
+    one call) and its bound; and the batched transform's ms per block at
+    B = 1, 4 and 8 corpus blocks against the one-block chain on the same
+    blocks. Returns per kernel max_abs_err, ms, plain_ms and bound."""
+    from tpubz_torch.block.encode import block_n
+    from tpubz_torch.dist.sharded import make_sharded_transform
+    from tpubz_torch.kernels import compact, mtf, rle2, suffix_sort
+    from tpubz_torch.stage_probe import kernel_device_us
+
+    dev = torch.device("cuda")
+    data, n, names = _batch_level9_rows(corpus, edges, rng, dev)
+    B, N = data.shape
+    err = dict.fromkeys(("bwt_batch", "mtf_batch", "rle2_batch", "compact"), 0)
+
+    def held(kernel, what, got, want):
+        torch.cuda.synchronize()
+        mismatches = sum(int((g.long() != w.long()).sum()) for g, w in zip(got, want))
+        e = max(int((g.long() - w.long()).abs().max()) for g, w in zip(got, want))
+        err[kernel] = max(err[kernel], e)
+        _say("kernel", f"{kernel} vs {what} rows={','.join(names)} B={B} N={N} "
+                f"mismatches={mismatches} max_abs_err={e} tolerance=0")
+        if mismatches:
+            raise AssertionError(f"{kernel} disagrees with {what}")
+
+    keys, last = suffix_sort.bwt_forward_batch(data, n)
+    held("bwt_batch", "plain", (keys, last), suffix_sort.bwt_forward_batch_ref(data, n))
+    one = [suffix_sort.bwt_forward(data[b], n[b]) for b in range(B)]
+    held("bwt_batch", "one-block bwt_forward", (keys, last),
+         (torch.stack([k for k, _ in one]), torch.stack([c for _, c in one])))
+    ranks, used = mtf.mtf_ranks_batch(last, n)
+    rranks, rused = mtf.mtf_ranks_batch_ref(last, n)
+    valid = torch.arange(N, device=dev)[None, :] < torch.tensor(n, device=dev)[:, None]
+    held("mtf_batch", "plain", (ranks * valid, used), (rranks * valid, rused))
+    one = [mtf.mtf_ranks(last[b], n[b]) for b in range(B)]
+    held("mtf_batch", "one-block mtf_ranks", (ranks * valid, used),
+         (torch.stack([r for r, _ in one]) * valid, torch.stack([u for _, u in one])))
+    eob = used.sum(1, dtype=torch.int32) + 1
+    syms, rle2_len, freqs = rle2.rle2_encode_batch(ranks, n, eob)
+    held("rle2_batch", "plain", (syms, rle2_len, freqs), rle2.rle2_encode_batch_ref(ranks, n, eob))
+    one = [rle2.rle2_encode(ranks[b], n[b], eob[b]) for b in range(B)]
+    held("rle2_batch", "one-block rle2_encode", (syms, rle2_len, freqs),
+         tuple(torch.stack([o[k] for o in one]) for k in range(3)))
+    got = compact.stage_compact(syms, rle2_len)
+    held("compact", "plain", got, compact.stage_compact_ref(syms, rle2_len))
+    hi_count = got[2].tolist()
+    if max(hi_count) <= compact.HI_CAP:
+        raise AssertionError(f"no row overflowed the sidecar: {hi_count}")
+    _say("kernel", f"compact hi_count={dict(zip(names, hi_count))} HI_CAP={compact.HI_CAP}")
+
+    # the same rows as the main path meets them: each rank's one row
+    OUT = N + 8
+    nsum = sum(n)
+    timed = {
+        "bwt_batch": (lambda: suffix_sort.bwt_forward_batch(data, n),
+                      lambda: suffix_sort.bwt_forward_batch_ref(data, n),
+                      _bound(nsum + B * (N + 8), sum(x * math.log2(x) for x in n)), 3),
+        # bytes in, ranks and used maps out
+        "mtf_batch": (lambda: mtf.mtf_ranks_batch(last, n), lambda: mtf.mtf_ranks_batch_ref(last, n),
+                      _bound(B * (N + 4 * N + 256 + 4), B * N), 20),
+        # ranks and the EOBs in; uint16 symbols, int32 lengths and frequencies out
+        "rle2_batch": (lambda: rle2.rle2_encode_batch(ranks, n, eob),
+                       lambda: rle2.rle2_encode_batch_ref(ranks, n, eob),
+                       _bound(B * (4 * N + 8 + 2 * OUT + 4 + 4 * 258), B * N), 20),
+        # symbols and lengths in; bytes, sidecars and counts out
+        "compact": (lambda: compact.stage_compact(syms, rle2_len),
+                    lambda: compact.stage_compact_ref(syms, rle2_len),
+                    _bound(B * (2 * OUT + 4 + OUT + 4 * compact.HI_CAP + 4), B * OUT), 20),
+    }
+    result = {}
+    for name, (run, plain, bound, reps) in timed.items():
+        ms, plain_ms = _cuda_ms(run, reps), _cuda_ms(plain, 2)
+        prof = kernel_device_us(run)
+        result[name] = {"max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms, "bound": bound,
+                        "device_us": prof["sum_us"]}
+        _say("kernel", f"{name} B={B} N={N} kernel_ms={ms} plain_ms={plain_ms} "
+                f"device_us={prof['sum_us']} device_launches={prof['launches']} "
+                f"bound_us={bound[0] * 1e3} bound_by={bound[1]} "
+                f"(CUDA events; device time from torch.profiler, one call; inputs={','.join(names)})")
+
+    # the batched transform at B = 1, 4, 8 corpus blocks against the
+    # one-block chain (bwt_forward, mtf_ranks, rle2_encode) on the same blocks
+    N9, n0 = block_n(LEVEL), LEVEL * 100_000
+    transform = make_sharded_transform(dev, N9)
+    blocks = torch.zeros(8, N9, dtype=torch.uint8)
+    for b in range(8):
+        blk = corpus[b * n0: (b + 1) * n0]
+        blocks[b, : len(blk)] = torch.frombuffer(bytearray(blk), dtype=torch.uint8)
+    blocks = blocks.to(dev)
+
+    def chain(rows):
+        for b in range(rows):
+            _, col = suffix_sort.bwt_forward(blocks[b], n0)
+            r, u = mtf.mtf_ranks(col, n0)
+            rle2.rle2_encode(r, n0, u.sum() + 1)
+
+    sizes = {}
+    for rows in (1, 4, 8):
+        batched = _cuda_ms(lambda: transform(blocks[:rows], [n0] * rows), 5)
+        single = _cuda_ms(lambda: chain(rows), 5)
+        sizes[rows] = (batched / rows, single / rows)
+    _say("kernel", "sharded_transform ms_per_block " + " ".join(
+        f"B={rows}:batched={b},one_block_chain={o}" for rows, (b, o) in sizes.items())
+        + " (CUDA events, corpus blocks 0-7, the batched chain with the compact form)")
+    return result
+
+
 def stage_bwt(tpubz_torch, data, stream):
     """The bwt stage, device-only, on the main path's data: the same bytes,
     the BWT's library call on every block and no MTF or RLE2 kernel (they
@@ -686,6 +849,184 @@ def hybrid(tpubz_torch, data, stream, tmp):
          f"cpu_count={os.cpu_count()}")
 
 
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _run_ranks(world, job, timeout):
+    """This script as ranks 0..world-1 of a gloo group on a free 127.0.0.1
+    port, all on cuda:0; each rank's result from its file. A rank that fails
+    or outlives the timeout fails the phase, and every rank is stopped."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        filter(None, (root, os.environ.get("PYTHONPATH")))))
+    port = str(_free_port())
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--rank", str(r),
+                               "--world", str(world), "--port", port, "--job", job],
+                              cwd=root, env=env, stdout=subprocess.DEVNULL,
+                              stderr=subprocess.PIPE)
+             for r in range(world)]
+    try:
+        errs = [p.communicate(timeout=timeout)[1] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    for r, (p, e) in enumerate(zip(procs, errs)):
+        if p.returncode != 0:
+            raise AssertionError(f"rank {r} of {world} exited {p.returncode}: "
+                                 f"{e.decode(errors='replace')[-3000:]}")
+    with open(f"{job}.world{world}.json") as f:
+        results = json.load(f)
+    return [results[str(r)] for r in range(world)]
+
+
+def rank_main(argv):
+    """One rank of the [multihost] phase: brings up the gloo group,
+    compresses the job's data with compress_multihost on cuda:0 twice, the
+    first call cold (the process's first kernels and library loads) and the
+    second with its batched kernels' counts read from zero, each timed from
+    a barrier to a barrier, and, with more than one rank,
+    decodes rank 0's stream with decompress_multihost and a corrupt copy of
+    it, which must raise. Rank 0 writes the stream and every rank's result
+    (the results are gathered to it)."""
+    import argparse
+
+    import torch.distributed as dist
+
+    ap = argparse.ArgumentParser()
+    for flag in ("--rank", "--world", "--port"):
+        ap.add_argument(flag, type=int, required=True)
+    ap.add_argument("--job", required=True)
+    a = ap.parse_args(argv)
+    from tpubz_torch.dist import multihost
+    from tpubz_torch.kernels import compact, mtf, rle2, suffix_sort
+
+    multihost.initialize(f"127.0.0.1:{a.port}", a.world, a.rank)
+    with open(a.job + ".in", "rb") as f:
+        data = f.read()
+    seconds = []
+    for _ in range(2):
+        suffix_sort.BATCH_LAUNCHES = mtf.BATCH_LAUNCHES = rle2.BATCH_LAUNCHES = 0
+        suffix_sort.LAUNCHES = mtf.LAUNCHES = rle2.LAUNCHES = compact.LAUNCHES = 0
+        suffix_sort.ROUNDS_RUN = 0
+        dist.barrier()
+        t0 = time.perf_counter()
+        stream = multihost.compress_multihost(data, LEVEL, device="cuda:0")
+        torch.cuda.synchronize()
+        dist.barrier()
+        seconds.append(time.perf_counter() - t0)
+    out = {"seconds_cold": seconds[0], "seconds": seconds[1], "stream_is_none": stream is None,
+           "transport": multihost.last_multihost_stats["transport"],
+           "launches": {"bwt_batch": suffix_sort.BATCH_LAUNCHES, "mtf_batch": mtf.BATCH_LAUNCHES,
+                        "rle2_batch": rle2.BATCH_LAUNCHES, "compact": compact.LAUNCHES,
+                        "one_block": suffix_sort.LAUNCHES + mtf.LAUNCHES + rle2.LAUNCHES},
+           "bwt_rounds": suffix_sort.ROUNDS_RUN,
+           "payload_bytes_sent": multihost.last_multihost_stats["payload_bytes_sent"]}
+    if a.rank == 0:
+        with open(f"{a.job}.world{a.world}.bz2", "wb") as f:
+            f.write(stream)
+    if a.world > 1:
+        dist.barrier()  # rank 0's stream is on disk: every rank decodes it
+        with open(f"{a.job}.world{a.world}.bz2", "rb") as f:
+            stream = f.read()
+        raw = multihost.decompress_multihost(stream)
+        out["decoded_equal"] = raw is None if a.rank else raw == data
+        bad = bytearray(stream)
+        bad[len(bad) // 2] ^= 0x40
+        t1 = time.perf_counter()
+        try:
+            multihost.decompress_multihost(bytes(bad))
+            out["corrupt_raised"] = None
+        except ValueError as e:
+            out["corrupt_raised"] = f"{type(e).__name__}: {e}"
+        out["corrupt_seconds"] = time.perf_counter() - t1
+    out["reference_modules"] = [m for m in sys.modules if m.split(".")[0] in ("tpubz", "jax")]
+    gathered = [None] * a.world
+    dist.all_gather_object(gathered, out)
+    if a.rank == 0:
+        with open(f"{a.job}.world{a.world}.json", "w") as f:
+            json.dump({str(r): res for r, res in enumerate(gathered)}, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def multihost(tpubz_torch, corpus, edges, rng, tmp):
+    """The multi-process path on the card: compress_multihost as two gloo
+    ranks on cuda:0 (subprocesses of this script) on a cut of the main
+    path's data of 10 level-9 blocks: corpus blocks, a random block,
+    bytes(range(256)) * 3500, the sidecar overflow block and the periodic
+    tail. Rank 0's stream must equal tpubz_torch.compress's (device-only)
+    and compress_cpu's, round-trip through decompress_multihost (two ranks)
+    and bunzip2, and a corrupt copy must make both ranks raise; each rank
+    must have launched all four batched kernels and no one-block kernel.
+    Then one rank on the same data, for its MB/s beside the two ranks',
+    compress's and compress_cpu's. Returns the two ranks' launches summed,
+    by kernel."""
+    from tpubz_torch.corpus import sidecar_overflow_block
+    from tpubz_torch.stage_probe import DEVICE_ONLY, env
+
+    data = _with_tied_tail(corpus[: 6 * LEVEL * 100_000] + rng.bytes(LEVEL * 100_000)
+                           + edges["all256"] + sidecar_overflow_block())
+    job = os.path.join(tmp, "multihost")
+    with open(job + ".in", "wb") as f:
+        f.write(data)
+    ranks = _run_ranks(2, job, 300)
+    with open(job + ".world2.bz2", "rb") as f:
+        stream = f.read()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with env(**DEVICE_ONLY["full"]):
+        want = tpubz_torch.compress(data, LEVEL, device="cuda")
+    torch.cuda.synchronize()
+    compress_s = time.perf_counter() - t0
+    blocks = tpubz_torch.stream.api.last_stream_stats["blocks"]
+    t0 = time.perf_counter()
+    host = tpubz_torch.compress_cpu(data, LEVEL)
+    cpu_s = time.perf_counter() - t0
+    if stream != want or stream != host:
+        raise AssertionError("the two ranks' stream differs from compress's or compress_cpu's")
+    if [r["stream_is_none"] for r in ranks] != [False, True]:
+        raise AssertionError(f"only rank 0 returns the stream: {ranks}")
+    if not all(r["decoded_equal"] for r in ranks):
+        raise AssertionError("decompress_multihost on two ranks did not give the data back")
+    if not all(r["corrupt_raised"] for r in ranks):
+        raise AssertionError(f"a corrupt stream did not raise on every rank: {ranks}")
+    for r, res in enumerate(ranks):
+        got = res["launches"]
+        if min(got[k] for k in ("bwt_batch", "mtf_batch", "rle2_batch", "compact")) < 1:
+            raise AssertionError(f"rank {r} did not launch every batched kernel: {got}")
+        if got["one_block"] or res["reference_modules"]:
+            raise AssertionError(f"rank {r}: one-block launches or reference modules: {res}")
+    steps = -(-blocks // 2)
+    if any(res["launches"]["bwt_batch"] != steps for res in ranks):
+        raise AssertionError(f"{blocks} blocks in {steps} steps, launches {ranks}")
+    ran = ["decompress_multihost(2 ranks)"] + ["bunzip2"] * _bunzip2_ok(stream, data)
+    one = _run_ranks(1, job, 300)[0]
+    with open(job + ".world1.bz2", "rb") as f:
+        if f.read() != stream:
+            raise AssertionError("one rank's stream differs from two ranks'")
+    mb = len(data) / 1e6
+    launches = {k: sum(r["launches"][k] for r in ranks)
+                for k in ("bwt_batch", "mtf_batch", "rle2_batch", "compact")}
+    _say("multihost", f"ranks=2 device=cuda:0 backend=gloo transport={ranks[0]['transport']} "
+         f"blocks={blocks} steps={steps} MB={mb} stream==compress==compress_cpu "
+         f"round_trips={'+'.join(ran)} corrupt_raised_on_every_rank=True "
+         f"corrupt_seconds={max(r['corrupt_seconds'] for r in ranks)} "
+         f"launches_by_rank={[r['launches'] for r in ranks]} bwt_rounds_by_rank="
+         f"{[r['bwt_rounds'] for r in ranks]} rank1_payload_bytes_sent="
+         f"{ranks[1]['payload_bytes_sent']} MBps_2_ranks={mb / ranks[0]['seconds']} "
+         f"MBps_1_rank={mb / one['seconds']} MBps_2_ranks_cold={mb / ranks[0]['seconds_cold']} "
+         f"MBps_1_rank_cold={mb / one['seconds_cold']} compress_device_only_MBps={mb / compress_s} "
+         f"compress_cpu_MBps={mb / cpu_s} (host clock, barrier to barrier in the ranks, the "
+         f"second call of each process; cold: its first; one card, both ranks on it)")
+    return launches
+
+
 def files(tpubz_torch, short, want, tmp):
     """The file surfaces on the card, each byte-equal to compress on the
     short stream and read back by bunzip2."""
@@ -721,4 +1062,6 @@ def files(tpubz_torch, short, want, tmp):
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank"]:
+        sys.exit(rank_main(sys.argv[1:]))
     sys.exit(main())

@@ -119,3 +119,45 @@ def test_every_entry_point_is_defined_in_csrc():
         assert f'extern "C" int {name}(' in text
     assert any(s.endswith("bitonic.cu") for s in _build.sources())
     assert any(s.endswith("radix.cu") for s in _build.sources())
+
+
+def test_batch_entry_points_pass_pointers_as_void_p():
+    """The multi-process path's entry points: device pointers and the stream
+    as c_void_p, host int arrays as int pointers, the batched BWT's scratch
+    size as a long long (B rows of ~30 MB pass 2^31 bytes)."""
+    import ctypes
+
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    ints = ctypes.POINTER(ctypes.c_int)
+    assert _build.SIGNATURES["tpubz_bwt_forward_batch"] == [P, ints, I, I, P, L, P, P, P, ints, P]
+    assert _build.SIGNATURES["tpubz_bwt_batch_sizes"] == [ints, I, ctypes.POINTER(L)]
+    assert _build.SIGNATURES["tpubz_mtf_ranks_batch"] == [P, P, I, I, I, P, P, P, P]
+    assert _build.SIGNATURES["tpubz_rle2_batch"] == [P, P, I, I, P, P, I, P, P, P, P]
+    assert _build.SIGNATURES["tpubz_stage_compact"] == [P, P, I, I, P, P, P, P, P]
+
+
+def test_builds_at_once_run_nvcc_once(tmp_path, build_dir, monkeypatch):
+    """Builds started together (the ranks of a multi-process run on a fresh
+    checkout) take turns on the build directory's lock: one runs nvcc, the
+    others find its library fresh, and no lock file is left."""
+    import threading
+
+    log = tmp_path / "calls.txt"
+    nvcc = _fake_nvcc(
+        tmp_path,
+        "import time\ntime.sleep(0.3)\n"
+        f"open({str(log)!r}, 'a').write(' '.join(sys.argv[1:]) + '\\n')\n"
+        "out = sys.argv[sys.argv.index('-o') + 1]\n"
+        "open(out, 'wb').write(b'lib')",
+    )
+    monkeypatch.setattr(_build, "_nvcc", lambda: nvcc)
+    results = []
+    threads = [threading.Thread(target=lambda: results.append(_build.build())) for _ in range(3)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    assert not any(t.is_alive() for t in threads)
+    assert results == [_build.LIB_PATH] * 3
+    assert len(log.read_text().splitlines()) == len(_build.sources()) + 1
+    assert sorted(os.listdir(build_dir)) == ["lib.so"]

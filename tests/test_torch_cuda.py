@@ -521,3 +521,168 @@ def test_level9_routes_match_compress_cpu(cuda, route, monkeypatch, tmp_path):
     assert st["dev_blocks"] >= 1
     assert suffix_sort.LAUNCHES - calls == st["dev_blocks"]
     assert got == compress_cpu(d, 9)
+
+
+# ---- the multi-process path's batched kernels ----
+
+_BATCHES = {
+    1: ["corpus_odd"],
+    3: ["near_periodic", "pad", "all256"],
+    4: ["corpus_block0", "overflow", "random_odd", "pad"],
+}
+
+
+def _batch_rows(B, device):
+    """B level-9 rows on the card: (data uint8[B, 900096], n list)."""
+    from tpubz_torch.corpus import sidecar_overflow_block
+
+    rng = np.random.default_rng(40 + B)
+    make = {
+        "corpus_odd": lambda: mixed_corpus(1, 11)[:899_999],
+        "corpus_block0": lambda: mixed_corpus(1, 2026)[:900_000],
+        "near_periodic": lambda: edge_blocks()["near_periodic"],
+        "all256": lambda: edge_blocks()["all256"],
+        "overflow": lambda: sidecar_overflow_block(),
+        "random_odd": lambda: rng.bytes(899_001),
+        "pad": lambda: b"\x00",
+    }
+    data = torch.zeros(B, 900_096, dtype=torch.uint8)
+    n = []
+    for b, name in enumerate(_BATCHES[B]):
+        row = make[name]()
+        data[b, : len(row)] = torch.frombuffer(bytearray(row), dtype=torch.uint8)
+        n.append(len(row))
+    return data.to(device), n
+
+
+@pytest.mark.parametrize("B", list(_BATCHES))
+def test_bwt_forward_batch_on_card(cuda, B):
+    """The batched BWT (one library call) equals its plain version on the
+    card and the one-block call row by row; a pad row takes no round, and
+    the rounds are those of the one-block calls of the other rows."""
+    from tpubz_torch.kernels import suffix_sort
+
+    data, n = _batch_rows(B, cuda)
+    before = (suffix_sort.BATCH_LAUNCHES, suffix_sort.ROUNDS_RUN)
+    keys, last = suffix_sort.bwt_forward_batch(data, n)
+    torch.cuda.synchronize()
+    assert suffix_sort.BATCH_LAUNCHES == before[0] + 1
+    batch_rounds = suffix_sort.ROUNDS_RUN - before[1]
+    rkeys, rlast = suffix_sort.bwt_forward_batch_ref(data, n)
+    assert torch.equal(keys, rkeys) and torch.equal(last, rlast)
+    one_rounds = 0
+    for b, nb in enumerate(n):
+        r0 = suffix_sort.ROUNDS_RUN
+        key, col = bwt_forward(data[b], nb)
+        torch.cuda.synchronize()
+        if nb > 1:
+            one_rounds += suffix_sort.ROUNDS_RUN - r0
+        assert int(key) == int(keys[b]) and torch.equal(col, last[b])
+    assert batch_rounds == one_rounds
+
+
+@pytest.mark.parametrize("B", list(_BATCHES))
+def test_mtf_ranks_batch_on_card(cuda, B):
+    """The batched MTF kernels equal their plain version on the card and
+    the one-block kernels row by row (ranks of the valid lanes, used)."""
+    from tpubz_torch.kernels import suffix_sort
+
+    data, n = _batch_rows(B, cuda)
+    _, last = suffix_sort.bwt_forward_batch(data, n)
+    before = mtf.BATCH_LAUNCHES
+    ranks, used = mtf.mtf_ranks_batch(last, n)
+    torch.cuda.synchronize()
+    assert mtf.BATCH_LAUNCHES == before + 1
+    rranks, rused = mtf.mtf_ranks_batch_ref(last, n)
+    assert torch.equal(used, rused)
+    for b, nb in enumerate(n):
+        assert torch.equal(ranks[b, :nb], rranks[b, :nb])
+        one_ranks, one_used = mtf.mtf_ranks(last[b].contiguous(), nb)
+        assert torch.equal(ranks[b, :nb], one_ranks[:nb]) and torch.equal(used[b], one_used)
+
+
+@pytest.mark.parametrize("B", list(_BATCHES))
+def test_rle2_encode_batch_on_card(cuda, B):
+    """The batched RLE2 kernels, the EOBs a device int32[B], equal their
+    plain version on the card exactly and the one-block kernels row by row
+    (in the one-block types)."""
+    from tpubz_torch.kernels import suffix_sort
+
+    data, n = _batch_rows(B, cuda)
+    _, last = suffix_sort.bwt_forward_batch(data, n)
+    ranks, used = mtf.mtf_ranks_batch(last, n)
+    eob = used.sum(1, dtype=torch.int32) + 1
+    before = rle2.BATCH_LAUNCHES
+    got = rle2.rle2_encode_batch(ranks, n, eob)
+    torch.cuda.synchronize()
+    assert rle2.BATCH_LAUNCHES == before + 1
+    for g, w in zip(got, rle2.rle2_encode_batch_ref(ranks, n, eob)):
+        assert g.dtype == w.dtype and torch.equal(g.long(), w.long())
+    for b, nb in enumerate(n):
+        syms, length, freqs = rle2.rle2_encode(ranks[b].contiguous(), nb, eob[b])
+        assert torch.equal(got[0][b].long(), syms.long()) and int(got[1][b]) == int(length)
+        assert torch.equal(got[2][b].long(), freqs)
+
+
+@pytest.mark.parametrize("B", list(_BATCHES))
+def test_stage_compact_on_card(cuda, B):
+    """The compact kernel equals its plain version on the card on the
+    batched RLE2 rows (the overflow row's count past HI_CAP) and on random
+    symbol rows with many symbols >= 256."""
+    from tpubz_torch.kernels import compact, suffix_sort
+
+    data, n = _batch_rows(B, cuda)
+    _, last = suffix_sort.bwt_forward_batch(data, n)
+    ranks, used = mtf.mtf_ranks_batch(last, n)
+    syms, rle2_len, _ = rle2.rle2_encode_batch(ranks, n, used.sum(1, dtype=torch.int32) + 1)
+    rng = np.random.default_rng(B)
+    rand = torch.from_numpy(rng.choice([0, 3, 256, 257], size=(B, 900_104)).astype(np.uint16))
+    lens = torch.from_numpy(rng.integers(1, 900_104, B).astype(np.int32))
+    for s, ln in ((syms, rle2_len), (rand.to(cuda), lens.to(cuda))):
+        before = compact.LAUNCHES
+        got = compact.stage_compact(s, ln)
+        torch.cuda.synchronize()
+        assert compact.LAUNCHES == before + 1
+        for g, w in zip(got, compact.stage_compact_ref(s, ln)):
+            assert g.dtype == w.dtype and torch.equal(g.long(), w.long())
+    if "overflow" in _BATCHES[B]:
+        assert int(got[2].max()) > compact.HI_CAP
+
+
+def test_sharded_transform_on_card_matches_cpu(cuda):
+    """make_sharded_transform on the card gives the eight outputs of its
+    CPU version on level-1 rows (an overflow row, a pad row)."""
+    from tpubz_torch.corpus import sidecar_overflow_block
+    from tpubz_torch.dist.sharded import make_sharded_transform
+
+    rows = [sidecar_overflow_block(100_000), b"abc" * 3001, b"\x00",
+            bytes(np.random.default_rng(3).integers(0, 256, 77_777, dtype=np.uint8))]
+    data = torch.zeros(4, 100_096, dtype=torch.uint8)
+    for b, r in enumerate(rows):
+        data[b, : len(r)] = torch.frombuffer(bytearray(r), dtype=torch.uint8)
+    n = [len(r) for r in rows]
+    got = make_sharded_transform("cuda", 100_096)(data, n)
+    want = make_sharded_transform("cpu", 100_096)(data, n)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda" and g.dtype == w.dtype
+        assert torch.equal(g.long().cpu(), w.long())
+
+
+def test_compress_multihost_one_process_on_card(cuda):
+    """compress_multihost in one process on the card gives compress's
+    device-only stream and compress_cpu's, through every batched kernel,
+    and decompress_multihost reads it back."""
+    from tpubz_torch.corpus import sidecar_overflow_block
+    from tpubz_torch.dist.multihost import compress_multihost, decompress_multihost
+    from tpubz_torch.kernels import compact, suffix_sort
+
+    d = mixed_corpus(1, 4)[:600_000] + sidecar_overflow_block(300_000) + b"xy" * 5000
+    before = (suffix_sort.BATCH_LAUNCHES, mtf.BATCH_LAUNCHES, rle2.BATCH_LAUNCHES,
+              compact.LAUNCHES)
+    got = compress_multihost(d, 1, device="cuda")
+    after = (suffix_sort.BATCH_LAUNCHES, mtf.BATCH_LAUNCHES, rle2.BATCH_LAUNCHES,
+             compact.LAUNCHES)
+    assert all(a - b >= 9 for a, b in zip(after, before))
+    assert got == tpubz_torch.compress(d, 1, device="cuda") == compress_cpu(d, 1)
+    assert decompress_multihost(got) == d

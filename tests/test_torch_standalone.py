@@ -38,6 +38,9 @@ _SURFACES = textwrap.dedent("""
     z = tpubz_torch.compress(d, 1, device="cpu")
     assert z == tpubz_torch.compress_cpu(d, 1)
     assert tpubz_torch.decompress(z) == d
+    from tpubz_torch.dist import multihost
+    assert multihost.compress_multihost(d, 1, device="cpu") == z
+    assert multihost.decompress_multihost(z) == d
     path = os.path.join(sys.argv[1], "f.bz2")
     with tpubz_torch.open(path, "wb", compresslevel=1, device="cpu") as f:
         f.write(d)
@@ -68,10 +71,11 @@ _SURFACES = textwrap.dedent("""
 
 
 def test_public_surfaces_load_no_tpubz_and_no_jax(tmp_path):
-    """compress(device="cpu"), compress_cpu, decompress, open("wb"/"rb"),
-    BZ2Compressor/BZ2Decompressor, cli.run and ``python -m tpubz_torch -k``
-    run in a fresh interpreter, which then holds no tpubz* and no jax*
-    module."""
+    """compress(device="cpu"), compress_cpu, decompress, the multi-process
+    path's compress_multihost and decompress_multihost (one process),
+    open("wb"/"rb"), BZ2Compressor/BZ2Decompressor, cli.run and
+    ``python -m tpubz_torch -k`` run in a fresh interpreter, which then
+    holds no tpubz* and no jax* module."""
     env = dict(os.environ, PYTHONPATH=ROOT, TPUBZ_TORCH_CACHE=str(tmp_path / "cache"))
     proc = subprocess.run([sys.executable, "-c", _SURFACES, str(tmp_path)], cwd=str(tmp_path),
                           env=env, capture_output=True, text=True, timeout=300)

@@ -7,6 +7,8 @@ Public API, the surfaces of tpubz and of the stdlib ``bz2``:
   open(filename, mode="rb", ..., device="cuda"), BZ2File
   BZ2Compressor(compresslevel=9, *, device="cuda"), BZ2Decompressor
   python -m tpubz_torch [bzip2 flags] [files]
+  dist.multihost.initialize / compress_multihost / decompress_multihost:
+            the multi-process path over torch.distributed (gloo)
 
 Layer map:
   kernels/  BWT (csrc/bwt.cu) on a hand-written radix sort (csrc/radix.cu),
@@ -16,6 +18,9 @@ Layer map:
             CUDA sources are built with nvcc at first use into _build/
   block/    per-block device transforms (full chain, or the BWT alone) and
             the pinned, event-synchronised host fetches
+  dist/     the multi-process path: one card per process, its rows through
+            the batched BWT, MTF and RLE2 kernels and the compact transfer
+            form (csrc/compact.cu), the packed blocks gathered to rank 0
   stream/   the hybrid scheduler (device blocks beside native CPU workers,
             the full and bwt device stages), its measured profile, and the
             bounded-memory file streams

@@ -15,15 +15,20 @@ host tensors and record an event; ``.result()`` on what they return waits
 for that event, on whichever thread calls it. On a CPU device the copies are
 the tensors themselves.
 
-The TPU relay and compile machinery of the JAX encoder (persistent compile
-cache, staged jits, warm stamps, the compact u8 transfer form) has no
-counterpart here: PyTorch runs eagerly and the card sits on PCIe.
+The compact transfer form of tpubz's symbol rows (a byte a symbol and a
+sidecar of the rare symbols >= 256, ``kernels/compact.py``) is fetched by the
+multi-process path (``dist/multihost.py``), and ``uncompact_syms`` here is
+its one host decoder, as in tpubz. The one-block path fetches the symbols as
+int16. The TPU relay and compile machinery of the JAX encoder (persistent
+compile cache, staged jits, warm stamps) has no counterpart here: PyTorch
+runs eagerly and the card sits on PCIe.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ..kernels.compact import HI_CAP  # noqa: F401 (the sidecar's capacity, as tpubz's)
 from ..kernels.mtf import CHUNK as MTF_CHUNK
 from ..kernels.mtf import mtf_ranks
 from ..kernels.rle2 import rle2_encode
@@ -51,6 +56,32 @@ def resolve_device(device) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r}: use 'cuda' or 'cpu'")
     return dev
+
+
+def uncompact_syms(syms_u8: np.ndarray, hi_packed: np.ndarray, hc: int) -> np.ndarray:
+    """Invert the compact transfer form (``kernels/compact.py``): the u8
+    stream back to uint16 symbols with the sidecar's symbols >= 256 patched
+    in. The one host decoder of the ``(pos << 1) | (sym - 256)`` contract,
+    as ``tpubz/block/encode.py:uncompact_syms`` is tpubz's. The caller
+    fetches the full row instead when the sidecar overflowed (hc > HI_CAP)."""
+    s = syms_u8.astype(np.uint16)
+    if hc:
+        packed = hi_packed[:hc]
+        s[packed >> 1] = 256 + (packed & 1)
+    return s
+
+
+def host_copies(device: torch.device, *tensors):
+    """(host tensors, event): pinned non-blocking copies on the current
+    stream and the event after them; on the CPU the tensors, no event."""
+    if device.type == "cpu":
+        return tensors, None
+    host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
+    for h, t in zip(host, tensors):
+        h.copy_(t, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record()
+    return host, event
 
 
 class Pending:
@@ -107,18 +138,6 @@ class DeviceBlockEncoder:
         key, last = bwt_forward(self.upload(rle1_block), n)
         return key, last, n
 
-    def _to_host(self, *tensors):
-        """(host tensors, event): pinned non-blocking copies on the current
-        stream and the event after them; on the CPU the tensors, no event."""
-        if self.device.type == "cpu":
-            return tensors, None
-        host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
-        for h, t in zip(host, tensors):
-            h.copy_(t, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record()
-        return host, event
-
     def fetch_async(self, out) -> Pending:
         """Start the host copy of a transform result; ``.result()`` is
         ``fetch``'s tuple. The scalars, freqs and used map travel as one
@@ -126,7 +145,7 @@ class DeviceBlockEncoder:
         key, syms, rle2_len, freqs, used = out
         small = torch.cat((key.view(1), rle2_len.view(1), freqs.to(torch.int64),
                            used.to(torch.int64)))
-        (h_small, h_syms), event = self._to_host(small, syms.to(torch.int16))
+        (h_small, h_syms), event = host_copies(self.device, small, syms.to(torch.int16))
 
         def finish():
             s = h_small.numpy()
@@ -150,7 +169,7 @@ class DeviceBlockEncoder:
         """Start the host copy of a ``transform_bwt`` result; ``.result()``
         is ``fetch_bwt``'s pair."""
         key, last, n = out
-        (h_key, h_last), event = self._to_host(key.view(1), last)
+        (h_key, h_last), event = host_copies(self.device, key.view(1), last)
         return Pending(event, lambda: (int(h_key[0]), h_last[:n].numpy()))
 
     def fetch_bwt(self, out):

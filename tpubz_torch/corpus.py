@@ -110,3 +110,13 @@ def edge_blocks() -> dict[str, bytes]:
         "one_byte_run": b"\x07" * 900_000,
         "all256": bytes(range(256)) * 3500,
     }
+
+
+def sidecar_overflow_block(size: int = 900_000) -> bytes:
+    """``size`` bytes of every byte pair (x, y) in order, repeated: its BWT
+    column cycles through the alphabet, so that most MTF ranks are 255 and
+    the RLE2 symbols >= 256 (65,282 in a level-9 block, 49,860 in a level-1
+    block) overflow the compact transfer form's sidecar of 8,192."""
+    pairs = np.arange(256, dtype=np.uint8)
+    one = np.stack(np.meshgrid(pairs, pairs, indexing="ij"), -1).tobytes()
+    return (one * (size // len(one) + 1))[:size]

@@ -45,6 +45,17 @@
 // that leaves no active rotation, or in which no active class split (the
 // partition at 2h equals the one at h).
 //
+// The batched call (tpubz_bwt_forward_batch, the counterpart of tpubz's
+// lax.map of bwt_forward(..., skip_converged="batch") in
+// tpubz/dist/sharded.py) runs up to 32 rows, each with its own scratch at a
+// fixed stride: its own state, active lists, rank, sa, histograms, tickets
+// and status words, so the radix passes' (round, pass) tags stay unique
+// within a row. Every kernel takes the rows of its launch as grid
+// dimension y (radix.cuh's Rows) and finds its row's buffers at the row's
+// offset; the host follows every row's state one round behind, and a
+// round's launches cover only the rows still refining. A row of one byte
+// (a pad row) takes no round. The one-block call is the batch of one row.
+//
 // What bounds it on an H100, per round of m active keys: the sort's passes
 // at 16 bytes a key each (radix.cuh), the key build's gathers of rank and
 // the re-rank's scatter of rank (32-byte sectors for 4-byte words), all
@@ -61,10 +72,13 @@
 
 namespace {
 
+using tpubz::radix::at_row;
 using tpubz::radix::Gate;
-using tpubz::radix::kDigitBits;
 using tpubz::radix::gated_count;
+using tpubz::radix::kDigitBits;
+using tpubz::radix::kMaxRows;
 using tpubz::radix::kTile;
+using tpubz::radix::Rows;
 using tpubz::radix::tiles_of;
 
 constexpr int kThreads = 256;
@@ -76,6 +90,7 @@ constexpr int kMaxRounds = 24;  // state slots; the round cap at 2^20 is 20
 constexpr int kSeedBytes = 5;
 constexpr int kKeyLo = kMaxLog2, kKeyHi = 3 * kMaxLog2;  // the sorted bits
 constexpr int kPinnedPerRound = 3;  // next active count, classes, split
+constexpr int kPinnedPerRow = kPinnedPerRound * kMaxRounds;
 constexpr int64_t kPosMask = (1 << kMaxLog2) - 1;
 constexpr int kAggs = 5;  // per re-rank tile: last class start, last head, heads, starts, active
 constexpr int kPasses = tpubz::radix::passes_of(kKeyLo, kKeyHi);
@@ -113,17 +128,25 @@ __device__ __forceinline__ int wrap(int i, int k, int n) {
   return j >= n ? j - n : j;
 }
 
-// The round's keys, in active-list order (all n rotations in round 0,
-// act == nullptr), and every digit's count. h: the round's shift, reduced
-// mod n.
+// The round's keys of the CTA's row, in active-list order (all n rotations
+// in round 0, act == nullptr), and every digit's count. The row's block is
+// data + row * N; rank, act, keys and hist are row 0's.
 __global__ void __launch_bounds__(kThreads)
-    bwt_keys(const uint8_t* __restrict__ block, int n, const int32_t* __restrict__ rank,
-             const int32_t* __restrict__ act, int h, Gate gate, int64_t* __restrict__ keys,
+    bwt_keys(const uint8_t* __restrict__ data, int N, int round, const int32_t* __restrict__ rank,
+             const int32_t* __restrict__ act, Gate gate, Rows rows, int64_t* __restrict__ keys,
              uint32_t* hist) {
   __shared__ uint32_t s_hist[kPasses << kDigitBits];
-  const int m = gated_count(gate);
+  const int m = gated_count(gate, rows);
   const int base = blockIdx.x * kTile;
   if (base >= m) return;
+  const int n = rows.n[blockIdx.y];
+  const uint8_t* block = data + static_cast<size_t>(rows.row[blockIdx.y]) * N;
+  rank = at_row(rank, rows);
+  act = at_row(act, rows);
+  keys = at_row(keys, rows);
+  hist = at_row(hist, rows);
+  // the round's shift, reduced mod n
+  const int h = round > 0 ? static_cast<int>((static_cast<long long>(kSeedBytes) << (round - 1)) % n) : 0;
   for (int x = threadIdx.x; x < kPasses << kDigitBits; x += kThreads) s_hist[x] = 0;
   __syncthreads();
 #pragma unroll 4
@@ -191,10 +214,13 @@ __device__ __forceinline__ void load_flags(const int64_t* __restrict__ skey, int
 // agg[k * kMaxRankTiles + tile], k: last class start, last head (-1 if
 // none), heads, class starts, active keys
 __global__ void __launch_bounds__(kThreads)
-    bwt_rank_tiles(const int64_t* __restrict__ skey, int round, Gate gate, int32_t* __restrict__ agg) {
+    bwt_rank_tiles(const int64_t* __restrict__ skey, int round, Gate gate, Rows rows,
+                   int32_t* __restrict__ agg) {
   __shared__ int sh[32];
-  const int m = gated_count(gate);
+  const int m = gated_count(gate, rows);
   if (blockIdx.x * kRankTile >= m) return;
+  skey = at_row(skey, rows);
+  agg = at_row(agg, rows);
   const int base = blockIdx.x * kRankTile + threadIdx.x * kRankPer;
   Flags f;
   load_flags(skey, base, m, round, f);
@@ -226,9 +252,10 @@ __device__ __forceinline__ int padded(int x) { return x + (x >> 5); }
 constexpr int kPaddedRankTile = kRankTile + kRankTile / 32;
 
 // m_next and done: the state's slots; pinned: the card's address of the
-// host's pinned words, kPinnedPerRound a round.
+// host's pinned words, kPinnedPerRound a round and kPinnedPerRow a row.
+// Every pointer but pinned is row 0's.
 __global__ void __launch_bounds__(kThreads)
-    bwt_rank_apply(const int64_t* __restrict__ skey, int n, int round, Gate gate,
+    bwt_rank_apply(const int64_t* __restrict__ skey, int round, Gate gate, Rows rows,
                    const int32_t* __restrict__ agg, int32_t* __restrict__ rank,
                    int32_t* __restrict__ sa, int32_t* __restrict__ act_next, int32_t* m_next,
                    int32_t* done, int32_t* __restrict__ pinned) {
@@ -236,8 +263,17 @@ __global__ void __launch_bounds__(kThreads)
   // per key of the tile: its position, its slot and its index in the next
   // active list (-1: it leaves the list)
   __shared__ int s_pos[kPaddedRankTile], s_slot[kPaddedRankTile], s_out[kPaddedRankTile];
-  const int m = gated_count(gate);
+  const int m = gated_count(gate, rows);
   if (blockIdx.x * kRankTile >= m) return;
+  const int n = rows.n[blockIdx.y];
+  skey = at_row(skey, rows);
+  agg = at_row(agg, rows);
+  rank = at_row(rank, rows);
+  sa = at_row(sa, rows);
+  act_next = at_row(act_next, rows);
+  m_next = at_row(m_next, rows);
+  done = at_row(done, rows);
+  pinned += static_cast<size_t>(rows.row[blockIdx.y]) * kPinnedPerRow;
   int start_before = -1, head_before = -1, active_before = 0;
   if (blockIdx.x == 0) {
     // no tile before this one: the round's state from all of them
@@ -310,19 +346,32 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// Row b's column at last + b * N and its key at key[b]; sa and rank are
+// row 0's. A row of one byte is its own column, key 0, whether or not it
+// ran a round; a row of none is all zero.
 __global__ void __launch_bounds__(kThreads)
-    bwt_last_column(const uint8_t* __restrict__ block, const int32_t* __restrict__ sa,
-                    const int32_t* __restrict__ rank, int n, int N, uint8_t* __restrict__ last,
-                    int64_t* __restrict__ key) {
+    bwt_last_column(const uint8_t* __restrict__ data, int N, Rows rows,
+                    const int32_t* __restrict__ sa, const int32_t* __restrict__ rank,
+                    uint8_t* __restrict__ last, int64_t* __restrict__ key) {
   const int p = blockIdx.x * kThreads + threadIdx.x;
   if (p >= N) return;
+  const int n = rows.n[blockIdx.y];
+  const size_t row = rows.row[blockIdx.y];
+  const uint8_t* block = data + row * N;
+  last += row * N;
   if (p >= n) {
     last[p] = 0;
+    if (p == 0) key[row] = 0;
     return;
   }
-  const int i = sa[p];
+  if (n == 1) {
+    last[0] = block[0];
+    key[row] = 0;
+    return;
+  }
+  const int i = at_row(sa, rows)[p];
   last[p] = block[i == 0 ? n - 1 : i - 1];
-  if (p == 0) *key = rank[0];
+  if (p == 0) key[row] = at_row(rank, rows)[0];
 }
 
 int blocks_for(int lanes, int per) { return (lanes + per - 1) / per; }
@@ -356,9 +405,12 @@ int round_cap(int n) {
   return c + 2;
 }
 
-// The call behind tpubz_bwt_forward, which describes the arguments.
-int enqueue_bwt(const uint8_t* block, int n, int N, void* scratch, int scratch_bytes_given,
-                int* pinned, int64_t* out_key, uint8_t* out_last, int* stats, cudaStream_t st) {
+// The call behind tpubz_bwt_forward and tpubz_bwt_forward_batch, which
+// describe the arguments: B rows of N bytes at data, row b's first ns[b]
+// valid. Rows shorter than min_n take no round (the batch's pad rows).
+int enqueue_bwt(const uint8_t* data, const int* ns, int B, int N, int min_n, void* scratch,
+                long long scratch_bytes_given, int* pinned, int64_t* out_key, uint8_t* out_last,
+                int* stats, cudaStream_t st) {
   using Clock = std::chrono::steady_clock;
   const auto us_since = [](Clock::time_point t) {
     return static_cast<int>(
@@ -366,14 +418,24 @@ int enqueue_bwt(const uint8_t* block, int n, int N, void* scratch, int scratch_b
   };
   const auto t_call = Clock::now();
   for (int q = 0; q < 7; ++q) stats[q] = 0;
-  if (n < 1 || n > N || n > (1 << kMaxLog2)) return static_cast<int>(cudaErrorInvalidValue);
-  const int cap = round_cap(n);
-  const Layout L(n, cap);
-  if (static_cast<size_t>(scratch_bytes_given) < L.bytes) return static_cast<int>(cudaErrorInvalidValue);
-  auto* b = static_cast<unsigned char*>(scratch);
-  const auto i64 = [&](size_t off) { return reinterpret_cast<int64_t*>(b + off); };
-  const auto i32 = [&](size_t off) { return reinterpret_cast<int32_t*>(b + off); };
-  const auto u32 = [&](size_t off) { return reinterpret_cast<uint32_t*>(b + off); };
+  stats[7] = -1;
+  if (B < 1 || B > kMaxRows || N < 1) return static_cast<int>(cudaErrorInvalidValue);
+  int n_max = 1;
+  for (int b = 0; b < B; ++b) {
+    if (ns[b] < 0 || ns[b] > N || ns[b] > (1 << kMaxLog2)) return static_cast<int>(cudaErrorInvalidValue);
+    n_max = ns[b] > n_max ? ns[b] : n_max;
+  }
+  const Layout L(n_max, round_cap(n_max));
+  const size_t stride = align256(L.bytes);
+  if (scratch_bytes_given < 0 ||
+      static_cast<size_t>(scratch_bytes_given) < (B - 1) * stride + L.bytes) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto* b0 = static_cast<unsigned char*>(scratch);
+  // row 0's buffers; each kernel moves them to its CTA's row
+  const auto i64 = [&](size_t off) { return reinterpret_cast<int64_t*>(b0 + off); };
+  const auto i32 = [&](size_t off) { return reinterpret_cast<int32_t*>(b0 + off); };
+  const auto u32 = [&](size_t off) { return reinterpret_cast<uint32_t*>(b0 + off); };
   int64_t* const keys[2] = {i64(L.keys[0]), i64(L.keys[1])};
   int32_t* const act[2] = {i32(L.act[0]), i32(L.act[1])};
   int32_t* const m_state = i32(L.m);
@@ -389,62 +451,105 @@ int enqueue_bwt(const uint8_t* block, int n, int N, void* scratch, int scratch_b
   int& pass_launches = stats[2];
   int& enqueue_us = stats[4];
   int& wait_us = stats[5];
-  // the state, tickets, histograms and status words: this call's tags only
-  if (cudaError_t e = cudaMemsetAsync(b + L.zero, 0, L.bytes - L.zero, st)) return static_cast<int>(e);
 
-  // one doubling round and its event
-  auto enqueue_round_untimed = [&](int r) -> int {
-    const Gate gate{r > 0 ? done + (r - 1) : nullptr, r > 0 ? m_state + r : nullptr, n};
-    const int h = r > 0 ? static_cast<int>((static_cast<long long>(kSeedBytes) << (r - 1)) % n) : 0;
+  // the rows that take rounds; the state, tickets, histograms and status
+  // words of each: this call's tags only
+  int live[kMaxRows], cap[kMaxRows];
+  int nlive = 0;
+  long long active_sorted = 0;
+  for (int b = 0; b < B; ++b) {
+    cap[b] = round_cap(ns[b] > 0 ? ns[b] : 1);
+    if (ns[b] < min_n || ns[b] < 1) continue;
+    live[nlive++] = b;
+    active_sorted += ns[b];
+    if (cudaError_t e = cudaMemsetAsync(b0 + b * stride + L.zero, 0, L.bytes - L.zero, st)) {
+      return static_cast<int>(e);
+    }
+  }
+
+  // one doubling round over the listed rows, and its event
+  auto enqueue_round_untimed = [&](int r, const int* list, int count) -> int {
+    Rows rows{};
+    rows.stride = static_cast<long long>(stride);
+    int widest = 1;
+    for (int k = 0; k < count; ++k) {
+      rows.row[k] = list[k];
+      rows.n[k] = ns[list[k]];
+      widest = rows.n[k] > widest ? rows.n[k] : widest;
+    }
+    const Gate gate{r > 0 ? done + (r - 1) : nullptr, r > 0 ? m_state + r : nullptr};
     uint32_t* hist = u32(L.hist) + (static_cast<size_t>(r) * kPasses << kDigitBits);
     int64_t* const in = keys[kPasses & 1];
     const int32_t* act_in = r > 0 ? act[r & 1] : nullptr;
-    bwt_keys<<<tiles_of(n), kThreads, 0, st>>>(block, n, i32(L.rank), act_in, h, gate, in, hist);
+    bwt_keys<<<dim3(tiles_of(widest), count), kThreads, 0, st>>>(data, N, r, i32(L.rank), act_in,
+                                                                 gate, rows, in, hist);
     if (cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
     if (int rc = tpubz::radix::enqueue_passes(in, keys, kKeyLo, kKeyHi, hist, u32(L.status),
                                               u32(L.tickets) + r * tpubz::radix::kMaxPasses, r,
-                                              gate, tiles_of(n), &pass_launches, st)) {
+                                              gate, rows, count, tiles_of(widest), &pass_launches,
+                                              st)) {
       return rc;
     }
-    const int rtiles = blocks_for(n, kRankTile);
-    bwt_rank_tiles<<<rtiles, kThreads, 0, st>>>(keys[0], r, gate, i32(L.agg));
+    const dim3 rgrid(blocks_for(widest, kRankTile), count);
+    bwt_rank_tiles<<<rgrid, kThreads, 0, st>>>(keys[0], r, gate, rows, i32(L.agg));
     if (cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
-    bwt_rank_apply<<<rtiles, kThreads, 0, st>>>(keys[0], n, r, gate, i32(L.agg), i32(L.rank),
-                                                i32(L.sa), act[(r + 1) & 1], m_state, done,
-                                                pinned_on_card);
+    bwt_rank_apply<<<rgrid, kThreads, 0, st>>>(keys[0], r, gate, rows, i32(L.agg), i32(L.rank),
+                                               i32(L.sa), act[(r + 1) & 1], m_state, done,
+                                               pinned_on_card);
     if (cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
     own_launches += 3;
     return static_cast<int>(cudaEventRecord(events.ev[r & 1], st));
   };
-  auto enqueue_round = [&](int r) -> int {
+  auto enqueue_round = [&](int r, const int* list, int count) -> int {
     const auto t = Clock::now();
-    const int rc = enqueue_round_untimed(r);
+    const int rc = enqueue_round_untimed(r, list, count);
     enqueue_us += us_since(t);
     return rc;
   };
 
-  if (int rc = enqueue_round(0)) return rc;
-  int r = 0;
-  long long active_sorted = n;
-  for (;;) {
-    const bool ahead = r + 1 < cap;
-    if (ahead) {
-      if (int rc = enqueue_round(r + 1)) return rc;
+  if (nlive > 0) {
+    if (int rc = enqueue_round(0, live, nlive)) return rc;
+  }
+  for (int r = 0; nlive > 0; ++r) {
+    // round r + 1 for the rows not known to have ended, below their cap
+    int ahead[kMaxRows], nahead = 0;
+    for (int k = 0; k < nlive; ++k) {
+      if (r + 1 < cap[live[k]]) ahead[nahead++] = live[k];
+    }
+    if (nahead > 0) {
+      if (int rc = enqueue_round(r + 1, ahead, nahead)) return rc;
     }
     const auto t_wait = Clock::now();
     if (cudaError_t e = cudaEventSynchronize(events.ev[r & 1])) return static_cast<int>(e);
     wait_us += us_since(t_wait);
-    const volatile int* words = static_cast<volatile int*>(pinned) + kPinnedPerRound * r;
-    const int m_after = words[0];
-    if (m_after == 0 || words[2] == 0) break;
-    if (!ahead) return -1;
-    active_sorted += m_after;
-    ++r;
+    int still = 0;
+    for (int k = 0; k < nlive; ++k) {
+      const int b = live[k];
+      const volatile int* words =
+          static_cast<volatile int*>(pinned) + static_cast<size_t>(b) * kPinnedPerRow + kPinnedPerRound * r;
+      const int m_after = words[0];
+      if (m_after == 0 || words[2] == 0) {
+        stats[0] += r + 1;
+        continue;
+      }
+      if (r + 1 >= cap[b]) {
+        stats[7] = b;
+        return -1;
+      }
+      active_sorted += m_after;
+      live[still++] = b;
+    }
+    nlive = still;
   }
-  stats[0] = r + 1;
   stats[3] = static_cast<int>(active_sorted);
-  bwt_last_column<<<blocks_for(N, kThreads), kThreads, 0, st>>>(block, i32(L.sa), i32(L.rank), n,
-                                                                N, out_last, out_key);
+  Rows all{};
+  all.stride = static_cast<long long>(stride);
+  for (int b = 0; b < B; ++b) {
+    all.row[b] = b;
+    all.n[b] = ns[b];
+  }
+  bwt_last_column<<<dim3(blocks_for(N, kThreads), B), kThreads, 0, st>>>(
+      data, N, all, i32(L.sa), i32(L.rank), out_last, out_key);
   ++own_launches;
   stats[6] = us_since(t_call);
   return static_cast<int>(cudaGetLastError());
@@ -458,9 +563,23 @@ int enqueue_bwt(const uint8_t* block, int n, int N, void* scratch, int scratch_b
 extern "C" int tpubz_bwt_sizes(int n, int* sizes) {
   const int cap = round_cap(n);
   sizes[0] = static_cast<int>(Layout(n, cap).bytes);
-  sizes[1] = kPinnedPerRound * kMaxRounds;
+  sizes[1] = kPinnedPerRow;
   sizes[2] = cap;
   sizes[3] = kPasses;
+  return 0;
+}
+
+// What a batched call of B rows of ns[b] bytes needs: sizes[0] the scratch's
+// bytes (B rows at the stride of the longest), sizes[1] the pinned int32
+// words (kPinnedPerRow a row), sizes[2] the most rows a call takes.
+// Returns 0, or cudaErrorInvalidValue for B outside [1, kMaxRows].
+extern "C" int tpubz_bwt_batch_sizes(const int* ns, int B, long long* sizes) {
+  if (B < 1 || B > kMaxRows) return static_cast<int>(cudaErrorInvalidValue);
+  int n_max = 1;
+  for (int b = 0; b < B; ++b) n_max = ns[b] > n_max ? ns[b] : n_max;
+  sizes[0] = static_cast<long long>(B) * align256(Layout(n_max, round_cap(n_max)).bytes);
+  sizes[1] = static_cast<long long>(B) * kPinnedPerRow;
+  sizes[2] = kMaxRows;
   return 0;
 }
 
@@ -486,7 +605,33 @@ extern "C" int tpubz_bwt_forward(const void* data, int n, int N, void* scratch,
                                  int scratch_bytes_given, int* pinned, void* key, void* last,
                                  int* stats, void* stream) {
   const auto st = static_cast<cudaStream_t>(stream);
-  const int rc = enqueue_bwt(static_cast<const uint8_t*>(data), n, N, scratch,
+  if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
+  int all_stats[8];
+  const int rc = enqueue_bwt(static_cast<const uint8_t*>(data), &n, 1, N, 1, scratch,
+                             scratch_bytes_given, pinned, static_cast<int64_t*>(key),
+                             static_cast<uint8_t*>(last), all_stats, st);
+  for (int q = 0; q < 7; ++q) stats[q] = all_stats[q];
+  if (rc != 0) cudaStreamSynchronize(st);
+  return rc;
+}
+
+// The BWT of B rows at once (1 <= B <= 32): row b is data[b * N : b * N +
+// ns[b]], its key goes to key[b] and its column to last[b * N :]; each row
+// equals tpubz_bwt_forward of that row. ns: host ints, 0 <= ns[b] <= N,
+// ns[b] <= 2^20; a row of 0 or 1 bytes takes no round. scratch: device
+// memory of the bytes tpubz_bwt_batch_sizes gives, 256-byte aligned.
+// pinned: page-locked, card-addressable host int32 words, as many as it
+// gives: row b's round r leaves its words at b * 72 + 3r. stats (out, 8
+// ints): rounds run summed over the rows, launches of this file's kernels,
+// launches of the radix passes, the active rotations sorted (over rows and
+// rounds), the host's microseconds enqueueing, waiting and in all, and the
+// row that reached its cap (-1 if none). Returns as tpubz_bwt_forward;
+// -1 names its row in stats[7].
+extern "C" int tpubz_bwt_forward_batch(const void* data, const int* ns, int B, int N,
+                                       void* scratch, long long scratch_bytes_given, int* pinned,
+                                       void* key, void* last, int* stats, void* stream) {
+  const auto st = static_cast<cudaStream_t>(stream);
+  const int rc = enqueue_bwt(static_cast<const uint8_t*>(data), ns, B, N, 2, scratch,
                              scratch_bytes_given, pinned, static_cast<int64_t*>(key),
                              static_cast<uint8_t*>(last), stats, st);
   if (rc != 0) cudaStreamSynchronize(st);

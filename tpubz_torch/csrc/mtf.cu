@@ -38,6 +38,13 @@
 //                     counts case 1 over (lprev_i, i) and case 2 over the
 //                     compacted list only.
 //
+// The batched call (tpubz_mtf_ranks_batch, the counterpart of
+// tpubz/kernels/mtf.py:mtf_ranks_batch, whose dominance count reaches the
+// Pallas kernel with rows = B * nc) launches the same three kernels with
+// the row as grid dimension y: each row has its own bytes, length, scratch
+// rows, used map and ranks, and the running last occurrence starts afresh
+// in every row, as tpubz resets its max-scan per block.
+//
 // What bounds it on an H100: its inputs and outputs are N bytes in and 4N
 // bytes of ranks out (4.5 MB at level 9, 1.34 us at 3.35 TB/s); the
 // kernels move about 13 MB between them (the in-group rows are written
@@ -61,10 +68,21 @@ constexpr int kWarps = kChunk / 32;
 constexpr int kAbsent = 256;      // the initial rank of an unused symbol
 constexpr unsigned kFull = 0xffffffffu;
 
+// The length of the CTA's row: n_rows[row] where the call has a device
+// array of them, else n.
+__device__ __forceinline__ int row_length(int n, const int32_t* n_rows) {
+  return n_rows != nullptr ? n_rows[blockIdx.y] : n;
+}
+
 __global__ void __launch_bounds__(kChunk)
-    mtf_group_last(const uint8_t* __restrict__ last, int n, int nc, int group,
-                   int32_t* __restrict__ lb_local, int32_t* __restrict__ gmax) {
+    mtf_group_last(const uint8_t* __restrict__ last, int n, const int32_t* __restrict__ n_rows,
+                   int nc, int group, int32_t* __restrict__ lb_local, int32_t* __restrict__ gmax) {
   __shared__ int32_t run[kChunk];  // last position of each symbol so far
+  const size_t row = blockIdx.y;
+  n = row_length(n, n_rows);
+  last += row * nc * kChunk;
+  lb_local += row * nc * kChunk;
+  gmax += row * gridDim.x * kChunk;
   const int t = threadIdx.x;
   const int lane = t & 31;
   const int c0 = blockIdx.x * group;
@@ -98,6 +116,10 @@ __global__ void __launch_bounds__(kPrefixCols* kPrefixSlices)
     mtf_group_prefix(const int32_t* __restrict__ gmax, int ng, int32_t* __restrict__ gpre,
                      uint8_t* __restrict__ used) {
   __shared__ int32_t part[kPrefixSlices][kPrefixCols];
+  const size_t row = blockIdx.y;
+  gmax += row * ng * kChunk;
+  gpre += row * ng * kChunk;
+  used += row * kChunk;
   const int col = threadIdx.x % kPrefixCols;
   const int q = threadIdx.x / kPrefixCols;  // a warp per slice of rows
   const int s = blockIdx.x * kPrefixCols + col;
@@ -152,9 +174,10 @@ __device__ __forceinline__ int block_sort256(int v, int* sh) {
 }
 
 __global__ void __launch_bounds__(kChunk)
-    mtf_chunk_ranks(const uint8_t* __restrict__ last, int n, int N, int group,
-                    const int32_t* __restrict__ lb_local, const int32_t* __restrict__ gpre,
-                    const uint8_t* __restrict__ used, int32_t* __restrict__ ranks) {
+    mtf_chunk_ranks(const uint8_t* __restrict__ last, int n, const int32_t* __restrict__ n_rows,
+                    int N, int group, const int32_t* __restrict__ lb_local,
+                    const int32_t* __restrict__ gpre, const uint8_t* __restrict__ used,
+                    int32_t* __restrict__ ranks) {
   __shared__ int32_t sh[kChunk];
   __shared__ int32_t s_srank[kChunk];  // chunk-start MTF rank of each symbol
   __shared__ int32_t s_lnext[kChunk];
@@ -164,6 +187,13 @@ __global__ void __launch_bounds__(kChunk)
   __shared__ uint8_t s_last_at[kWarps][kChunk + 1];   // and its last
   __shared__ int32_t s_used[kWarps];
   __shared__ int32_t s_count[kWarps];
+  const size_t row = blockIdx.y;
+  n = row_length(n, n_rows);
+  last += row * N;
+  lb_local += row * N;
+  gpre += row * ((gridDim.x + group - 1) / group) * kChunk;
+  used += row * kChunk;
+  ranks += row * N;
   const int t = threadIdx.x, lane = t & 31, w = t >> 5;
   const unsigned below = (1u << lane) - 1;
   const int c = blockIdx.x;
@@ -239,6 +269,29 @@ __global__ void __launch_bounds__(kChunk)
   ranks[pos] = rank;
 }
 
+// The three launches over B rows of N bytes; row b's length is n_rows[b]
+// (device) where n_rows is given, else n.
+int enqueue_mtf(const uint8_t* last, int n, const int32_t* n_rows, int B, int N, int group,
+                int32_t* scratch, uint8_t* used, int32_t* ranks, cudaStream_t st) {
+  const int nc = N / kChunk;
+  const int ng = (nc + group - 1) / group;
+  int32_t* lb_local = scratch;
+  int32_t* gmax = lb_local + static_cast<size_t>(B) * nc * kChunk;
+  int32_t* gpre = gmax + static_cast<size_t>(B) * ng * kChunk;
+  if (nc > 0) {
+    mtf_group_last<<<dim3(ng, B), kChunk, 0, st>>>(last, n, n_rows, nc, group, lb_local, gmax);
+    if (cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
+  }
+  mtf_group_prefix<<<dim3(kChunk / kPrefixCols, B), kPrefixCols * kPrefixSlices, 0, st>>>(
+      gmax, ng, gpre, used);
+  if (cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
+  if (nc > 0) {
+    mtf_chunk_ranks<<<dim3(nc, B), kChunk, 0, st>>>(last, n, n_rows, N, group, lb_local, gpre,
+                                                    used, ranks);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // last: device uint8[N], N a multiple of 256, the first n bytes valid.
@@ -251,24 +304,23 @@ extern "C" int tpubz_mtf_ranks(const void* last, int n, int N, int group, void* 
   if (N < 0 || N % kChunk || n < 0 || n > N || group < 1 || group > kMaxGroup) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int nc = N / kChunk;
-  const int ng = (nc + group - 1) / group;
-  int32_t* lb_local = static_cast<int32_t*>(scratch);
-  int32_t* gmax = lb_local + static_cast<size_t>(nc) * kChunk;
-  int32_t* gpre = gmax + static_cast<size_t>(ng) * kChunk;
-  auto* used_map = static_cast<uint8_t*>(used);
-  const auto st = static_cast<cudaStream_t>(stream);
-  const auto* bytes = static_cast<const uint8_t*>(last);
-  if (nc > 0) {
-    mtf_group_last<<<ng, kChunk, 0, st>>>(bytes, n, nc, group, lb_local, gmax);
-    if (cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
+  return enqueue_mtf(static_cast<const uint8_t*>(last), n, nullptr, 1, N, group,
+                     static_cast<int32_t*>(scratch), static_cast<uint8_t*>(used),
+                     static_cast<int32_t*>(ranks), static_cast<cudaStream_t>(stream));
+}
+
+// The MTF of B rows at once: row b is last[b * N :], its first n_rows[b]
+// bytes valid (n_rows: device int32[B], each in [0, N]); its ranks go to
+// ranks[b * N :] and its used map to used[b * 256 :]. scratch: device int32
+// of B * (nc + 2 * ng) * 256 entries. Each row equals tpubz_mtf_ranks of
+// that row. Returns as tpubz_mtf_ranks.
+extern "C" int tpubz_mtf_ranks_batch(const void* last, const void* n_rows, int B, int N,
+                                     int group, void* scratch, void* used, void* ranks,
+                                     void* stream) {
+  if (N < 0 || N % kChunk || B < 1 || B > 65535 || group < 1 || group > kMaxGroup) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  mtf_group_prefix<<<kChunk / kPrefixCols, kPrefixCols * kPrefixSlices, 0, st>>>(gmax, ng, gpre,
-                                                                                 used_map);
-  if (cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
-  if (nc > 0) {
-    mtf_chunk_ranks<<<nc, kChunk, 0, st>>>(bytes, n, N, group, lb_local, gpre, used_map,
-                                           static_cast<int32_t*>(ranks));
-  }
-  return static_cast<int>(cudaGetLastError());
+  return enqueue_mtf(static_cast<const uint8_t*>(last), 0, static_cast<const int32_t*>(n_rows), B,
+                     N, group, static_cast<int32_t*>(scratch), static_cast<uint8_t*>(used),
+                     static_cast<int32_t*>(ranks), static_cast<cudaStream_t>(stream));
 }

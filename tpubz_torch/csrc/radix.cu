@@ -95,5 +95,6 @@ extern "C" int tpubz_radix_sort(const void* keys, void* out, int n, int lo, int 
   return tpubz::radix::enqueue_passes(in, bufs, lo, hi, hist,
                                       reinterpret_cast<uint32_t*>(b + L.status),
                                       reinterpret_cast<uint32_t*>(b + L.tickets), 0,
-                                      Gate{nullptr, nullptr, n}, grid, launched, st);
+                                      Gate{nullptr, nullptr}, tpubz::radix::one_row(n), 1, grid,
+                                      launched, st);
 }

@@ -19,6 +19,12 @@
 // call (torch.empty scratch can hold an earlier call's words) and no pass
 // or round needs them zeroed again.
 //
+// A launch sorts one or more rows, independent sorts side by side: grid
+// dimension y walks a Rows list, and a CTA finds its row's keys, counts,
+// tickets and status words at the row's offset from row 0's (the batched
+// BWT keeps each row's scratch at a fixed stride). A standalone sort is
+// one row at offset 0.
+//
 // What bounds a pass on an H100: each key is read once and written once,
 // 16 bytes a key (14.4 MB at the BWT's 900,000 keys, 4.3 us at 3.35 TB/s;
 // both buffers stay in the 50 MB L2). The look-back is a chain of L2 round
@@ -75,20 +81,44 @@ __device__ __forceinline__ uint32_t digit_of(int64_t key, int shift, int width) 
   return static_cast<uint32_t>(static_cast<uint64_t>(key) >> shift) & ((1u << width) - 1);
 }
 
-// How many keys a launch sorts. The BWT enqueues a round before the host
-// knows that the round before was the last, and before any host knows how
-// many rotations the round has: `done` (null, or a device int: nonzero and
-// the launch has nothing to do) and `count` (null: `fixed`; or the device
-// int that holds it) are read on the card.
+// The rows a launch covers: blockIdx.y's row, its length, and the bytes
+// between two rows' scratch (0 for one row).
+constexpr int kMaxRows = 32;
+struct Rows {
+  int row[kMaxRows];
+  int n[kMaxRows];
+  long long stride;
+};
+
+inline Rows one_row(int n) {
+  Rows r{};
+  r.n[0] = n;
+  return r;
+}
+
+// p moved to this CTA's row (null stays null)
+template <typename T>
+__device__ __forceinline__ T* at_row(T* p, const Rows& r) {
+  if (p == nullptr) return p;
+  return (T*)((char*)p + r.row[blockIdx.y] * r.stride);
+}
+
+// How many keys a launch sorts in a row. The BWT enqueues a round before
+// the host knows that the round before was the last, and before any host
+// knows how many rotations the round has: `done` (null, or a device int:
+// nonzero and the launch has nothing to do) and `count` (null: the row's
+// length; or the device int that holds it), row 0's, are read on the card
+// at the CTA's row.
 struct Gate {
   const int32_t* done;
   const int32_t* count;
-  int fixed;
 };
 
-__device__ __forceinline__ int gated_count(const Gate& g) {
-  if (g.done != nullptr && *g.done != 0) return 0;
-  return g.count != nullptr ? *g.count : g.fixed;
+__device__ __forceinline__ int gated_count(const Gate& g, const Rows& r) {
+  const int32_t* done = at_row(g.done, r);
+  const int32_t* count = at_row(g.count, r);
+  if (done != nullptr && *done != 0) return 0;
+  return count != nullptr ? *count : r.n[blockIdx.y];
 }
 
 __device__ __forceinline__ uint32_t ld_relaxed(const uint32_t* p) {
@@ -123,7 +153,8 @@ __device__ __forceinline__ void hist_flush(const uint32_t* s, uint32_t* hist, in
   }
 }
 
-// One pass: keys `in` to `out` by the digit (key >> shift) & (2^width - 1).
+// One pass: keys `in` to `out` by the digit (key >> shift) & (2^width - 1);
+// every pointer is row 0's.
 struct PassArgs {
   const int64_t* in;
   int64_t* out;
@@ -141,7 +172,7 @@ union PassSmem {
   uint16_t warp[kWarps][kBins];  // per warp and digit: its keys, then the warps' before
 };
 
-__global__ void __launch_bounds__(kThreads) radix_pass(PassArgs a) {
+__global__ void __launch_bounds__(kThreads) radix_pass(PassArgs a, Rows rows) {
   constexpr int kBinsPer = kBins / kThreads;
   static_assert(kBinsPer >= 1 && kBins % kThreads == 0, "a thread owns whole digits");
   __shared__ PassSmem s;
@@ -149,8 +180,13 @@ __global__ void __launch_bounds__(kThreads) radix_pass(PassArgs a) {
   __shared__ int s_delta[kBins];  // its global index less that
   __shared__ int s_tile;
   __shared__ int sh[32];
-  const int m = gated_count(a.gate);
+  const int m = gated_count(a.gate, rows);
   if (blockIdx.x >= tiles_of(m)) return;
+  a.in = at_row(a.in, rows);
+  a.out = at_row(a.out, rows);
+  a.hist = at_row(a.hist, rows);
+  a.status = at_row(a.status, rows);
+  a.ticket = at_row(a.ticket, rows);
   if (threadIdx.x == 0) s_tile = static_cast<int>(atomicAdd(a.ticket, 1u));
   for (int x = threadIdx.x; x < kWarps * kBins; x += kThreads) (&s.warp[0][0])[x] = 0;
   __syncthreads();
@@ -261,11 +297,12 @@ __global__ void __launch_bounds__(kThreads) radix_pass(PassArgs a) {
 // (p = 0) or the pass before's output and writes bufs[(passes - 1 - p) & 1],
 // so the last pass writes bufs[0]; `in` may be bufs[passes & 1]. hist: the
 // histogram launch's counts, pass p's at hist + (p << kDigitBits); tickets:
-// one zeroed word a pass. Grid: tiles of the most keys the gate can let
-// through. Adds its launches to *launched.
+// one zeroed word a pass. All of them are row 0's. Grid: tiles of the most
+// keys the gate can let through in any row, by `count` rows. Adds its
+// launches to *launched.
 int enqueue_passes(const int64_t* in, int64_t* const bufs[2], int lo, int hi,
                    const uint32_t* hist, uint32_t* status, uint32_t* tickets, int round, Gate gate,
-                   int grid, int* launched, cudaStream_t st) {
+                   const Rows& rows, int count, int grid, int* launched, cudaStream_t st) {
   const int passes = passes_of(lo, hi);
   for (int p = 0; p < passes; ++p) {
     const int shift = lo + p * kDigitBits;
@@ -278,7 +315,7 @@ int enqueue_passes(const int64_t* in, int64_t* const bufs[2], int lo, int hi,
                tickets + p,
                tag_of(round, p),
                gate};
-    radix_pass<<<grid, kThreads, 0, st>>>(a);
+    radix_pass<<<dim3(grid, count), kThreads, 0, st>>>(a, rows);
     if (cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
     ++*launched;
   }

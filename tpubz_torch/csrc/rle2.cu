@@ -28,6 +28,14 @@
 //                    histogram (warp-aggregated) goes to freqs by integer
 //                    atomics, exact in any order.
 //
+// The batched call (tpubz_rle2_batch, the counterpart of
+// tpubz/kernels/rle2.py:rle2_encode_batch) runs the same three kernels with
+// the row as grid dimension y (one scan CTA a row): each row has its own
+// ranks, length, EOB, tile statistics and outputs, and no offset crosses a
+// row. It writes tpubz's batch types (uint16 symbols, int32 length and
+// frequencies); the one-block call keeps int32 symbols and int64 length and
+// frequencies. The types are template parameters of the kernels.
+//
 // What bounds it on an H100: 4N bytes of ranks in and 4(N+8) of symbols out
 // (7.2 MB at level 9, 2.15 us at 3.35 TB/s); the ranks are read twice, the
 // second time mostly from the 50 MB L2. The work per rank is a few integer
@@ -77,9 +85,26 @@ __device__ __forceinline__ void load_ranks(const int32_t* ranks, int base, int N
   }
 }
 
+// The length of the CTA's row: n_rows[row] where the call has a device
+// array of them, else n.
+__device__ __forceinline__ int row_length(int n, const int32_t* n_rows) {
+  return n_rows != nullptr ? n_rows[blockIdx.y] : n;
+}
+
+// count += v for a frequency slot of either width, exact in any order
+__device__ __forceinline__ void add_count(int64_t* f, int v) {
+  atomicAdd(reinterpret_cast<unsigned long long*>(f), static_cast<unsigned long long>(v));
+}
+__device__ __forceinline__ void add_count(int32_t* f, int v) { atomicAdd(f, v); }
+
 __global__ void __launch_bounds__(kThreads)
-    rle2_tile_stats(const int32_t* __restrict__ ranks, int n, int N, int4* __restrict__ stats) {
+    rle2_tile_stats(const int32_t* __restrict__ ranks, int n, const int32_t* __restrict__ n_rows,
+                    int N, int4* __restrict__ stats) {
   __shared__ int sh[32];
+  const size_t row = blockIdx.y;
+  n = row_length(n, n_rows);
+  ranks += row * N;
+  stats += row * gridDim.x;
   const int base = blockIdx.x * kTile + threadIdx.x * kPer;
   int r[kPer];
   load_ranks(ranks, base, N, r);
@@ -109,11 +134,19 @@ __global__ void __launch_bounds__(kThreads)
   if (threadIdx.x == 0) stats[blockIdx.x] = make_int4(tile_first, tile_last, tile_emit, 0);
 }
 
+// One CTA a row (blockIdx.y), eob[row] its EOB.
+template <typename E, typename S, typename L, typename F>
 __global__ void __launch_bounds__(kScanThreads)
-    rle2_scan(const int4* __restrict__ stats, int nb, int n, const int64_t* __restrict__ eob,
-              int out_len, int2* __restrict__ carry, int32_t* __restrict__ syms,
-              int64_t* __restrict__ rle2_len, int64_t* __restrict__ freqs) {
+    rle2_scan(const int4* __restrict__ stats, int nb, int n, const int32_t* __restrict__ n_rows,
+              const E* __restrict__ eob, int out_len, int2* __restrict__ carry,
+              S* __restrict__ syms, L* __restrict__ rle2_len, F* __restrict__ freqs) {
   __shared__ int sh[32];
+  const size_t row = blockIdx.y;
+  n = row_length(n, n_rows);
+  stats += row * nb;
+  carry += row * nb;
+  syms += row * out_len;
+  freqs += row * kBins;
   int last_nz = -1, body = 0;  // carried across rounds
   for (int b0 = 0; b0 < nb; b0 += kScanThreads) {
     const int b = b0 + threadIdx.x;
@@ -130,27 +163,36 @@ __global__ void __launch_bounds__(kScanThreads)
   const int tail = n - 1 - last_nz;  // the run after the last nonzero
   const int tail_digits = num_digits(tail);
   const int len = body + tail_digits + 1;
-  const int end = static_cast<int>(*eob);
+  const int end = static_cast<int>(eob[row]);
   for (int s = threadIdx.x; s < kBins; s += blockDim.x) {
-    int64_t f = s == end;
+    int f = s == end;
     for (int k = 0; k < tail_digits; ++k) f += (((tail + 1) >> k) & 1) == s;
-    freqs[s] = f;
+    freqs[s] = static_cast<F>(f);
   }
-  if (threadIdx.x < tail_digits) syms[body + threadIdx.x] = ((tail + 1) >> threadIdx.x) & 1;
+  if (threadIdx.x < tail_digits) {
+    syms[body + threadIdx.x] = static_cast<S>(((tail + 1) >> threadIdx.x) & 1);
+  }
   // the slots past the stream and past every tile (the tiles zero theirs)
   for (int j = max(len, nb * kTile) + threadIdx.x; j < out_len; j += blockDim.x) syms[j] = 0;
   if (threadIdx.x == 0) {
-    syms[len - 1] = end;
-    *rle2_len = len;
+    syms[len - 1] = static_cast<S>(end);
+    rle2_len[row] = static_cast<L>(len);
   }
 }
 
+template <typename S, typename L, typename F>
 __global__ void __launch_bounds__(kThreads)
-    rle2_write(const int32_t* __restrict__ ranks, int n, int N, const int2* __restrict__ carry,
-               const int64_t* __restrict__ rle2_len, int out_len, int32_t* __restrict__ syms,
-               int64_t* __restrict__ freqs) {
+    rle2_write(const int32_t* __restrict__ ranks, int n, const int32_t* __restrict__ n_rows, int N,
+               const int2* __restrict__ carry, const L* __restrict__ rle2_len, int out_len,
+               S* __restrict__ syms, F* __restrict__ freqs) {
   __shared__ int sh[32];
   __shared__ int hist[kBins];
+  const size_t row = blockIdx.y;
+  n = row_length(n, n_rows);
+  ranks += row * N;
+  carry += row * gridDim.x;
+  syms += row * out_len;
+  freqs += row * kBins;
   const int t = threadIdx.x, lane = t & 31;
   for (int s = t; s < kBins; s += kThreads) hist[s] = 0;
   const int base = blockIdx.x * kTile + t * kPer;
@@ -186,11 +228,11 @@ __global__ void __launch_bounds__(kThreads)
       const int d = num_digits(run);
       for (int q = 0; q < d; ++q) {
         const int digit = ((run + 1) >> q) & 1;
-        syms[off + q] = digit;
+        syms[off + q] = static_cast<S>(digit);
         runb += digit;
       }
       runa += d;
-      syms[off + d] = r[k] + 1;
+      syms[off + d] = static_cast<S>(r[k] + 1);
       off += d + 1;
       p = i;
     }
@@ -210,16 +252,34 @@ __global__ void __launch_bounds__(kThreads)
     if (runb) atomicAdd(&hist[1], runb);
   }
   // this CTA's share of the slots past the stream
-  const int len = static_cast<int>(*rle2_len);
+  const int len = static_cast<int>(rle2_len[row]);
   const int z1 = min(static_cast<int>(blockIdx.x + 1) * kTile, out_len);
   for (int j = max(static_cast<int>(blockIdx.x) * kTile, len) + t; j < z1; j += kThreads) syms[j] = 0;
   __syncthreads();
   for (int s = t; s < kBins; s += kThreads) {
-    if (hist[s]) {
-      atomicAdd(reinterpret_cast<unsigned long long*>(freqs + s),
-                static_cast<unsigned long long>(hist[s]));
-    }
+    if (hist[s]) add_count(freqs + s, hist[s]);
   }
+}
+
+// The three launches over B rows of N ranks; row b's length is n_rows[b]
+// (device) where n_rows is given, else n; its EOB is eob[b].
+template <typename E, typename S, typename L, typename F>
+int enqueue_rle2(const int32_t* ranks, int n, const int32_t* n_rows, int B, int N, const E* eob,
+                 void* scratch, int nb, S* syms, L* rle2_len, F* freqs, cudaStream_t st) {
+  auto* stats = static_cast<int4*>(scratch);
+  auto* carry = reinterpret_cast<int2*>(stats + static_cast<size_t>(B) * nb);
+  if (nb > 0) {
+    rle2_tile_stats<<<dim3(nb, B), kThreads, 0, st>>>(ranks, n, n_rows, N, stats);
+    if (cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
+  }
+  rle2_scan<<<dim3(1, B), kScanThreads, 0, st>>>(stats, nb, n, n_rows, eob, N + 8, carry, syms,
+                                                  rle2_len, freqs);
+  if (cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
+  if (nb > 0) {
+    rle2_write<<<dim3(nb, B), kThreads, 0, st>>>(ranks, n, n_rows, N, carry, rle2_len, N + 8,
+                                                  syms, freqs);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -234,20 +294,26 @@ extern "C" int tpubz_rle2(const void* ranks, int n, int N, const void* eob, void
   if (N < 0 || n < 0 || n > N || nb != (N + kTile - 1) / kTile) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  auto* stats = static_cast<int4*>(scratch);
-  auto* carry = reinterpret_cast<int2*>(static_cast<int32_t*>(scratch) + 4 * static_cast<size_t>(nb));
-  const auto st = static_cast<cudaStream_t>(stream);
-  const auto* r = static_cast<const int32_t*>(ranks);
-  auto* out = static_cast<int32_t*>(syms);
-  auto* len = static_cast<int64_t*>(rle2_len);
-  auto* f = static_cast<int64_t*>(freqs);
-  if (nb > 0) {
-    rle2_tile_stats<<<nb, kThreads, 0, st>>>(r, n, N, stats);
-    if (cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
+  return enqueue_rle2(static_cast<const int32_t*>(ranks), n, nullptr, 1, N,
+                      static_cast<const int64_t*>(eob), scratch, nb, static_cast<int32_t*>(syms),
+                      static_cast<int64_t*>(rle2_len), static_cast<int64_t*>(freqs),
+                      static_cast<cudaStream_t>(stream));
+}
+
+// RLE2 of B rows at once: row b's ranks at ranks[b * N :] (N a multiple of
+// 4, 16-byte aligned), its first n_rows[b] valid (device int32[B]), its EOB
+// eob[b] (device int32[B]). scratch: device int32 of 6 * B * nb entries.
+// syms: device uint16[B, N + 8]; rle2_len: device int32[B]; freqs: device
+// int32[B, 258]. Each row equals tpubz_rle2 of that row. Returns as
+// tpubz_rle2.
+extern "C" int tpubz_rle2_batch(const void* ranks, const void* n_rows, int B, int N,
+                                const void* eob, void* scratch, int nb, void* syms,
+                                void* rle2_len, void* freqs, void* stream) {
+  if (N < 0 || N % 4 || B < 1 || B > 65535 || nb != (N + kTile - 1) / kTile) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  rle2_scan<<<1, kScanThreads, 0, st>>>(stats, nb, n, static_cast<const int64_t*>(eob), N + 8,
-                                        carry, out, len, f);
-  if (cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
-  if (nb > 0) rle2_write<<<nb, kThreads, 0, st>>>(r, n, N, carry, len, N + 8, out, f);
-  return static_cast<int>(cudaGetLastError());
+  return enqueue_rle2(static_cast<const int32_t*>(ranks), 0, static_cast<const int32_t*>(n_rows),
+                      B, N, static_cast<const int32_t*>(eob), scratch, nb,
+                      static_cast<uint16_t*>(syms), static_cast<int32_t*>(rle2_len),
+                      static_cast<int32_t*>(freqs), static_cast<cudaStream_t>(stream));
 }

@@ -6,7 +6,11 @@ with a plain C interface, ``tpubz_torch/_build/libtpubz_torch_kernels.so``.
 No PyTorch header is included, so the build takes seconds. The library is
 rebuilt when a source or a header in ``csrc/`` is newer than it (the rule
 of ``tpubz/native/__init__.py:_build``, with headers watched too).
-The sources in the checkout are the build's only inputs.
+The sources in the checkout are the build's only inputs. Processes that
+build at once (the ranks of a multi-process run on a fresh checkout) take
+turns on a lock (flock on the build directory; the host engine's build
+takes one on a lock file), so that one of them runs nvcc and the others
+load its library.
 
 Nothing here runs at import time: the CPU tests import every module on a
 machine without nvcc.
@@ -14,6 +18,7 @@ machine without nvcc.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
 import shutil
 import subprocess
@@ -49,6 +54,21 @@ SIGNATURES = {
     # n, sizes (out, 4 ints: scratch bytes, pinned words, round cap, radix
     # passes a round)
     "tpubz_bwt_sizes": [ctypes.c_int, _INTS],
+    # data, ns (host ints), B, N, scratch, its bytes, pinned host int32
+    # words, keys, lasts, stats (out, 8 ints), stream
+    "tpubz_bwt_forward_batch": [_P, _INTS, ctypes.c_int, ctypes.c_int, _P, ctypes.c_longlong, _P,
+                                _P, _P, _INTS, _P],
+    # ns (host ints), B, sizes (out, 3 long longs: scratch bytes, pinned
+    # words, the most rows a call takes)
+    "tpubz_bwt_batch_sizes": [_INTS, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)],
+    # lasts, n (device int32[B]), B, N, group, scratch, used, ranks, stream
+    "tpubz_mtf_ranks_batch": [_P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P],
+    # ranks, n (device int32[B]), B, N, eob (device int32[B]), scratch, nb,
+    # syms, rle2_len, freqs, stream
+    "tpubz_rle2_batch": [_P, _P, ctypes.c_int, ctypes.c_int, _P, _P, ctypes.c_int, _P, _P, _P,
+                         _P],
+    # syms, rle2_len, B, OUT, scratch, syms_u8, hi_packed, hi_count, stream
+    "tpubz_stage_compact": [_P, _P, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P],
     # keys, out, n, lo bit, hi bit, scratch, its bytes, launched (out), stream
     "tpubz_radix_sort": [_P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, ctypes.c_int,
                          _INTS, _P],
@@ -106,23 +126,35 @@ def _run_all(cmds) -> None:
 
 def build() -> str:
     """Compile the sources unless the library is newer than every input:
-    one nvcc per source, all at once, then one link. Raises RuntimeError
+    one nvcc per source, all at once, then one link. Processes that build
+    at once take turns on the build directory's lock. Raises RuntimeError
     with nvcc's stderr when the build fails."""
     srcs = sources()
-    if os.path.exists(LIB_PATH) and os.path.getmtime(LIB_PATH) >= max(
-        os.path.getmtime(s) for s in inputs()
-    ):
+    stamp = max(os.path.getmtime(s) for s in inputs())
+
+    def fresh() -> bool:
+        return os.path.exists(LIB_PATH) and os.path.getmtime(LIB_PATH) >= stamp
+
+    if fresh():
         return LIB_PATH
     os.makedirs(BUILD_DIR, exist_ok=True)
-    nvcc = _nvcc()
-    # build beside the target and rename, so a concurrent loader never
-    # opens a half-written library
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
-        objs = [os.path.join(work, os.path.basename(s) + ".o") for s in srcs]
-        _run_all([[nvcc, *NVCC_FLAGS, "-c", s, "-o", o] for s, o in zip(srcs, objs)])
-        lib = os.path.join(work, "lib.so")
-        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]])
-        os.replace(lib, LIB_PATH)
+    # the lock is the build directory itself, so that it leaves no file
+    lock = os.open(BUILD_DIR, os.O_RDONLY)
+    try:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if fresh():  # another process built it while this one waited
+            return LIB_PATH
+        nvcc = _nvcc()
+        # build beside the target and rename, so a loader that takes no
+        # lock never opens a half-written library
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+            objs = [os.path.join(work, os.path.basename(s) + ".o") for s in srcs]
+            _run_all([[nvcc, *NVCC_FLAGS, "-c", s, "-o", o] for s, o in zip(srcs, objs)])
+            lib = os.path.join(work, "lib.so")
+            _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]])
+            os.replace(lib, LIB_PATH)
+    finally:
+        os.close(lock)  # and with it the lock
     return LIB_PATH
 
 

@@ -10,6 +10,13 @@ position's in-chunk previous and next occurrence and the recency keys at the
 chunk start, and ``ranks_from_parts_ref`` turns them into ranks as the
 Pallas kernel ``tpubz/kernels/mtf_pallas.py`` does.
 
+``mtf_ranks_batch`` is the counterpart of ``tpubz/kernels/mtf.py:
+mtf_ranks_batch``, whose dominance count reaches the Pallas kernel with
+rows = B * nc: for a CUDA tensor the same three kernels run with the row as
+a grid dimension (``csrc/mtf.cu:tpubz_mtf_ranks_batch``), each row with its
+own length and used map; ``mtf_ranks_batch_ref`` runs ``mtf_ranks_ref`` row
+by row.
+
 Where the TPU formulation avoided gathers and scatters, the plain version
 uses them: the (symbol, position) sort is taken back by a scatter, and the
 initial rank of a first-ever occurrence is a gather from the cumulative
@@ -30,8 +37,9 @@ CHUNK = 256  # the CUDA kernels run one 256-thread CTA per chunk
 GROUP = 16
 
 # calls into the kernel library in this process, three kernels each (CPU
-# calls are not counted)
+# calls are not counted): mtf_ranks's, and mtf_ranks_batch's
 LAUNCHES = 0
+BATCH_LAUNCHES = 0
 _launch_lock = threading.Lock()
 
 
@@ -177,4 +185,71 @@ def mtf_ranks(last: torch.Tensor, n: int, chunk: int = CHUNK):
         raise RuntimeError(f"tpubz_mtf_ranks launch failed: CUDA error {rc}")
     with _launch_lock:
         LAUNCHES += 1
+    return ranks, used
+
+
+def row_lengths(n, B: int, N: int, device) -> torch.Tensor:
+    """The batch functions' row lengths as an int32[B] tensor on ``device``:
+    ``n`` is B host ints, each in [0, N], or such a tensor already there
+    (taken as it is)."""
+    if isinstance(n, torch.Tensor) and n.device == torch.device(device):
+        if n.dtype != torch.int32 or n.shape != (B,) or not n.is_contiguous():
+            raise TypeError(f"row lengths must be a contiguous int32[{B}] tensor")
+        return n
+    n = [int(x) for x in n]
+    if len(n) != B:
+        raise ValueError(f"{len(n)} lengths for {B} rows")
+    if any(not 0 <= x <= N for x in n):
+        raise ValueError(f"row lengths {n} outside [0, {N}]")
+    return torch.tensor(n, dtype=torch.int32, device=device)
+
+
+def mtf_ranks_batch_ref(last: torch.Tensor, n, chunk: int = CHUNK):
+    """Plain torch version of ``mtf_ranks_batch``: ``mtf_ranks_ref`` row by
+    row."""
+    B, N = last.shape
+    lengths = row_lengths(n, B, N, last.device).tolist()
+    parts = [mtf_ranks_ref(last[b], lengths[b], chunk) for b in range(B)]
+    ranks = torch.zeros(B, N, dtype=torch.int32, device=last.device)
+    used = torch.zeros(B, 256, dtype=torch.bool, device=last.device)
+    for b, (r, u) in enumerate(parts):
+        ranks[b], used[b] = r, u
+    return ranks, used
+
+
+def mtf_ranks_batch(last: torch.Tensor, n, chunk: int = CHUNK):
+    """last: uint8[B, N] BWT outputs, row b's first n[b] valid (B host ints,
+    or an int32[B] tensor on last's device). Returns (ranks int32[B, N],
+    used bool[B, 256]), row b equal to ``mtf_ranks(last[b], n[b])``'s; pad
+    lanes are 0 here and unspecified in tpubz. A CUDA tensor launches the
+    kernels on the current stream or raises; a CPU tensor runs the plain
+    version."""
+    global BATCH_LAUNCHES
+    dev = last.device
+    if dev.type == "cpu":
+        return mtf_ranks_batch_ref(last, n, chunk)
+    if dev.type != "cuda":
+        raise ValueError(f"mtf_ranks_batch: unsupported device {dev}")
+    if last.dtype != torch.uint8 or last.dim() != 2 or not last.is_contiguous():
+        raise TypeError("mtf_ranks_batch takes a contiguous 2-D uint8 tensor")
+    B, N = last.shape
+    if not 1 <= B <= 65535:
+        raise ValueError(f"mtf_ranks_batch takes 1 to 65535 rows, got {B}")
+    _check(last[0], 0, chunk)
+    lengths = row_lengths(n, B, N, dev)
+    nc = N // CHUNK
+    ng = -(-nc // GROUP)
+    scratch = torch.empty(B * (nc + 2 * ng) * CHUNK, dtype=torch.int32, device=dev)
+    used = torch.empty(B, 256, dtype=torch.bool, device=dev)
+    ranks = torch.empty(B, N, dtype=torch.int32, device=dev)
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.tpubz_mtf_ranks_batch(last.data_ptr(), lengths.data_ptr(), B, N, GROUP,
+                                       scratch.data_ptr(), used.data_ptr(), ranks.data_ptr(),
+                                       stream)
+    if rc != 0:
+        raise RuntimeError(f"tpubz_mtf_ranks_batch launch failed: CUDA error {rc}")
+    with _launch_lock:
+        BATCH_LAUNCHES += 1
     return ranks, used

@@ -9,6 +9,12 @@ position computes its own output slot and symbol, and one scatter writes
 them. A zero run of length L becomes the floor(log2(L+1)) bijective base-2
 digits of L (RUNA=0, RUNB=1, low digit first), a rank r >= 1 becomes symbol
 r+1, and the EOB goes last.
+
+``rle2_encode_batch`` is the counterpart of ``tpubz/kernels/rle2.py:
+rle2_encode_batch``, in its types (uint16 symbols, int32 length and
+frequencies): for a CUDA tensor the same three kernels run with the row as
+a grid dimension (``csrc/rle2.cu:tpubz_rle2_batch``), the EOBs a device
+int32[B]; ``rle2_encode_batch_ref`` runs ``rle2_encode_ref`` row by row.
 """
 from __future__ import annotations
 
@@ -17,12 +23,14 @@ import threading
 import torch
 
 from . import _build
+from .mtf import row_lengths
 
 TILE = 4096  # ranks one CTA of csrc/rle2.cu takes (256 threads x 16)
 
 # calls into the kernel library in this process, three kernels each (CPU
-# calls are not counted)
+# calls are not counted): rle2_encode's, and rle2_encode_batch's
 LAUNCHES = 0
+BATCH_LAUNCHES = 0
 _launch_lock = threading.Lock()
 
 
@@ -125,4 +133,70 @@ def rle2_encode(ranks: torch.Tensor, n: int, eob: torch.Tensor | int):
         raise RuntimeError(f"tpubz_rle2 launch failed: CUDA error {rc}")
     with _launch_lock:
         LAUNCHES += 1
+    return syms, rle2_len, freqs
+
+
+def _batch_eob(eob, B: int, device) -> torch.Tensor:
+    eob = torch.as_tensor(eob, device=device)
+    if eob.shape != (B,):
+        raise ValueError(f"eob must hold one symbol for each of the {B} rows")
+    return eob.to(torch.int32).contiguous()
+
+
+def rle2_encode_batch_ref(ranks: torch.Tensor, n, eob):
+    """Plain torch version of ``rle2_encode_batch``: ``rle2_encode_ref`` row
+    by row."""
+    B, N = ranks.shape
+    lengths = row_lengths(n, B, N, ranks.device).tolist()
+    ends = _batch_eob(eob, B, ranks.device)
+    # built in int32: torch has few uint16 kernels besides conversion
+    syms = torch.zeros(B, N + 8, dtype=torch.int32, device=ranks.device)
+    rle2_len = torch.zeros(B, dtype=torch.int32, device=ranks.device)
+    freqs = torch.zeros(B, 258, dtype=torch.int32, device=ranks.device)
+    for b in range(B):
+        syms[b], rle2_len[b], freqs[b] = rle2_encode_ref(ranks[b], lengths[b], ends[b])
+    return syms.to(torch.uint16), rle2_len, freqs
+
+
+def rle2_encode_batch(ranks: torch.Tensor, n, eob):
+    """ranks: int32[B, N] MTF ranks, row b's first n[b] valid (B host ints,
+    or an int32[B] tensor on ranks' device); eob: each row's used symbol
+    count + 1, int32[B] (it stays on the device).
+
+    Returns (syms uint16[B, N+8], rle2_len int32[B], freqs int32[B, 258]),
+    row b equal to ``rle2_encode(ranks[b], n[b], eob[b])``'s in tpubz's
+    batch types; syms are 0 past rle2_len. A CUDA tensor launches the
+    kernels on the current stream or raises; a CPU tensor runs the plain
+    version."""
+    global BATCH_LAUNCHES
+    dev = ranks.device
+    if dev.type == "cpu":
+        return rle2_encode_batch_ref(ranks, n, eob)
+    if dev.type != "cuda":
+        raise ValueError(f"rle2_encode_batch: unsupported device {dev}")
+    if ranks.dtype != torch.int32 or ranks.dim() != 2 or not ranks.is_contiguous():
+        raise TypeError("rle2_encode_batch takes a contiguous 2-D int32 tensor")
+    B, N = ranks.shape
+    if not 1 <= B <= 65535:
+        raise ValueError(f"rle2_encode_batch takes 1 to 65535 rows, got {B}")
+    if N % 4:
+        raise ValueError("the CUDA kernels take rows of a multiple of 4 ranks")
+    _check(ranks[0], 0)
+    lengths = row_lengths(n, B, N, dev)
+    ends = _batch_eob(eob, B, dev)
+    nb = -(-N // TILE)
+    scratch = torch.empty(6 * B * nb, dtype=torch.int32, device=dev)
+    syms = torch.empty(B, N + 8, dtype=torch.uint16, device=dev)
+    rle2_len = torch.empty(B, dtype=torch.int32, device=dev)
+    freqs = torch.empty(B, 258, dtype=torch.int32, device=dev)
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.tpubz_rle2_batch(ranks.data_ptr(), lengths.data_ptr(), B, N, ends.data_ptr(),
+                                  scratch.data_ptr(), nb, syms.data_ptr(), rle2_len.data_ptr(),
+                                  freqs.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"tpubz_rle2_batch launch failed: CUDA error {rc}")
+    with _launch_lock:
+        BATCH_LAUNCHES += 1
     return syms, rle2_len, freqs

@@ -17,6 +17,15 @@ kernels; the host follows each round's state one round behind the card
 through pinned words. For a CPU tensor it runs the plain torch version
 ``bwt_forward_ref``, the same formulation on ``radix.radix_sort_ref``.
 
+``bwt_forward_batch`` is the counterpart of tpubz's batched BWT, its
+``lax.map`` of ``bwt_forward(..., skip_converged="batch")`` over block rows
+(``tpubz/dist/sharded.py:61-64``): row b of its result is ``bwt_forward``
+of row b. For a CUDA tensor it is one library call for up to 32 rows
+(``csrc/bwt.cu:tpubz_bwt_forward_batch``): every row keeps its own state,
+the card runs each round's kernels over the rows still refining, and a row
+of one byte (the multi-process path's pad rows) takes no round. Its plain
+version ``bwt_forward_batch_ref`` runs ``bwt_forward_ref`` row by row.
+
 The formulation (both versions):
   - ranks are group starts: rank[i] is the number of rotations in classes
     strictly smaller than i's class, so a rotation alone in its class holds
@@ -70,6 +79,11 @@ KERNEL_LAUNCHES = 0
 # a round's event (asleep, so the thread's core is free for the emit threads
 # and the hybrid's CPU workers), in all
 HOST_US = {"enqueue": 0, "wait": 0, "call": 0}
+# calls of bwt_forward_batch into the kernel library, one per call of up to
+# MAX_ROWS rows (CPU calls are not counted); their rounds (summed over the
+# rows), active rotations and kernel launches add to the counts above
+BATCH_LAUNCHES = 0
+MAX_ROWS = 32  # rows a batched library call takes (csrc/radix.cuh: kMaxRows)
 _launch_lock = threading.Lock()
 
 
@@ -219,3 +233,81 @@ def bwt_forward(data: torch.Tensor, n: int) -> tuple[torch.Tensor, torch.Tensor]
         for name, us in zip(HOST_US, host_us):
             HOST_US[name] += us
     return key, last
+
+
+def _check_batch(data: torch.Tensor, n) -> list[int]:
+    if data.dtype != torch.uint8 or data.dim() != 2 or not data.is_contiguous():
+        raise TypeError("bwt_forward_batch takes a contiguous 2-D uint8 tensor")
+    B, N = data.shape
+    n = [int(x) for x in n]
+    if len(n) != B:
+        raise ValueError(f"{len(n)} lengths for {B} rows")
+    for x in n:
+        if not 0 <= x <= N:
+            raise ValueError(f"n={x} outside [0, {N}]")
+        if x > 1 << MAX_LOG2:
+            raise ValueError(f"bwt_forward_batch takes n <= 2^{MAX_LOG2}, got {x}")
+    return n
+
+
+def bwt_forward_batch_ref(data: torch.Tensor, n) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain torch version of ``bwt_forward_batch``: ``bwt_forward_ref`` row
+    by row, on data's device."""
+    n = _check_batch(data, n)
+    B, N = data.shape
+    keys = torch.zeros(B, dtype=torch.int64, device=data.device)
+    last = torch.zeros(B, N, dtype=torch.uint8, device=data.device)
+    for b, nb in enumerate(n):
+        keys[b], last[b] = bwt_forward_ref(data[b], nb)
+    return keys, last
+
+
+def bwt_forward_batch(data: torch.Tensor, n) -> tuple[torch.Tensor, torch.Tensor]:
+    """data: uint8[B, N], row b's first n[b] bytes valid (n: B host ints,
+    each <= 2^20). Returns (keys int64[B], last uint8[B, N]), row b equal to
+    ``bwt_forward(data[b], n[b])``. A CUDA tensor makes one library call per
+    MAX_ROWS rows on the current stream or raises (no fixpoint names its
+    row); a CPU tensor runs the plain version."""
+    global BATCH_LAUNCHES, ROUNDS_RUN, ACTIVE_SORTED, KERNEL_LAUNCHES
+    dev = data.device
+    if dev.type == "cpu":
+        return bwt_forward_batch_ref(data, n)
+    if dev.type != "cuda":
+        raise ValueError(f"bwt_forward_batch: unsupported device {dev}")
+    n = _check_batch(data, n)
+    B, N = data.shape
+    keys = torch.empty(B, dtype=torch.int64, device=dev)
+    last = torch.empty(B, N, dtype=torch.uint8, device=dev)
+    lib = _build.load()
+    for r0 in range(0, B, MAX_ROWS):
+        rows = n[r0:r0 + MAX_ROWS]
+        ns = (ctypes.c_int * len(rows))(*rows)
+        sizes = (ctypes.c_longlong * 3)()
+        lib.tpubz_bwt_batch_sizes(ns, len(rows), sizes)
+        if sizes[2] != MAX_ROWS:
+            raise RuntimeError(f"the library takes {sizes[2]} rows a call, not {MAX_ROWS}")
+        scratch = torch.empty(sizes[0], dtype=torch.uint8, device=dev)
+        pinned = torch.empty(sizes[1], dtype=torch.int32, pin_memory=True)
+        stats = (ctypes.c_int * 8)()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = lib.tpubz_bwt_forward_batch(data[r0].data_ptr(), ns, len(rows), N,
+                                             scratch.data_ptr(), sizes[0], pinned.data_ptr(),
+                                             keys[r0:].data_ptr(), last[r0].data_ptr(), stats,
+                                             stream)
+        if rc == -1:
+            b = r0 + stats[7]
+            raise RuntimeError(f"tpubz_bwt_forward_batch: row {b} (n={n[b]}) reached no "
+                               f"fixpoint after {round_cap(n[b])} rounds")
+        if rc != 0:
+            raise RuntimeError(f"tpubz_bwt_forward_batch launch failed: CUDA error {rc}")
+        rounds, own_launches, pass_launches, active, *host_us, _ = stats
+        radix.count_sorts(rounds, pass_launches)
+        with _launch_lock:
+            BATCH_LAUNCHES += 1
+            ROUNDS_RUN += rounds
+            ACTIVE_SORTED += active
+            KERNEL_LAUNCHES += own_launches
+            for name, us in zip(HOST_US, host_us):
+                HOST_US[name] += us
+    return keys, last

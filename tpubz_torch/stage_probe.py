@@ -321,7 +321,7 @@ def probation_sweep(data: bytes, level: int, device, reps: int = 3,
     return {"cores": cores, "default": saved, "rows": rows}
 
 
-def _device_us(fn) -> dict:
+def kernel_device_us(fn) -> dict:
     """Device microseconds of one call of fn by kernel name, their sum and
     their union, from torch.profiler after a warm-up call."""
     from torch.autograd import DeviceType
@@ -352,8 +352,8 @@ def chain_profile(mib: int, seed: int) -> dict:
     last = bwt_forward(padded, n)[1]
     ranks, used = mtf_ranks(last, n)
     eob = used.sum() + 1
-    return {"mtf": _device_us(lambda: mtf_ranks(last, n)),
-            "rle2": _device_us(lambda: rle2_encode(ranks, n, eob))}
+    return {"mtf": kernel_device_us(lambda: mtf_ranks(last, n)),
+            "rle2": kernel_device_us(lambda: rle2_encode(ranks, n, eob))}
 
 
 def stream_spans(data: bytes, level: int, stage: str, device="cuda") -> dict:
@@ -406,7 +406,7 @@ def stream_spans(data: bytes, level: int, stage: str, device="cuda") -> dict:
 
 
 def _by_kernel(call: dict) -> dict:
-    """A _device_us result's microseconds and launches summed by kernel
+    """A kernel_device_us result's microseconds and launches summed by kernel
     (the names of BWT_KERNELS; template arguments folded)."""
     out = {}
     for name, us in call["kernels_us"].items():
@@ -430,7 +430,7 @@ def bwt_anatomy(data: bytes) -> dict:
     before = (suffix_sort.ROUNDS_RUN, suffix_sort.ACTIVE_SORTED)
     bwt_forward(padded, n)
     rounds, active = (suffix_sort.ROUNDS_RUN - before[0], suffix_sort.ACTIVE_SORTED - before[1])
-    call = _device_us(lambda: bwt_forward(padded, n))
+    call = kernel_device_us(lambda: bwt_forward(padded, n))
     kernels = _by_kernel(call)
     passes = kernels.get("radix_pass", {"us": 0.0, "launches": 0})
     block0 = {"rounds": rounds, "active_rotations_sorted": active, "call": call,
@@ -444,12 +444,12 @@ def bwt_anatomy(data: bytes) -> dict:
     pos = torch.arange(k64.shape[0], dtype=torch.int32, device="cuda")
     k32 = (k64 >> 40).to(torch.int32)
     sorts = {
-        "radix_sort": _device_us(lambda: radix.radix_sort(k0, lo, hi)),
-        "torch_sort": _device_us(lambda: torch.sort(k0)),
-        "bitonic_1op_i64": _device_us(lambda: bitonic.bitonic_1op(k64)),
-        "bitonic_2op_i64": _device_us(lambda: bitonic.bitonic_2op(k64, pos)),
-        "bitonic_2op_i32": _device_us(lambda: bitonic.bitonic_2op(k32, pos)),
-        "stage_passes_row2_i32": _device_us(lambda: bitonic.stage_passes(k32.clone(), [19, 18])),
+        "radix_sort": kernel_device_us(lambda: radix.radix_sort(k0, lo, hi)),
+        "torch_sort": kernel_device_us(lambda: torch.sort(k0)),
+        "bitonic_1op_i64": kernel_device_us(lambda: bitonic.bitonic_1op(k64)),
+        "bitonic_2op_i64": kernel_device_us(lambda: bitonic.bitonic_2op(k64, pos)),
+        "bitonic_2op_i32": kernel_device_us(lambda: bitonic.bitonic_2op(k32, pos)),
+        "stage_passes_row2_i32": kernel_device_us(lambda: bitonic.stage_passes(k32.clone(), [19, 18])),
     }
     enc = DeviceBlockEncoder(9, "cuda")
     per_block = []
