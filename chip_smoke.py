@@ -38,7 +38,16 @@ corrupt copy raising on both ranks; each rank must have launched all four
 batched kernels (the batched BWT, MTF and RLE2 and the compact form, held
 before against their plain versions and the one-block kernels on five
 level-9 rows at once) and no one-block kernel; then one rank on the same
-data for its MB/s. Every phase prints one
+data for its MB/s. The device refine encoder ([devrefine]) encodes
+[path]'s blocks with DeviceBlockEncoder.transform and
+encode_block_devrefine, and again as rows of the batched transform with
+each call's histograms from one chunk_hist_batch launch; both streams must
+equal [path]'s and round-trip, every device refine kernel must have
+launched and no plain version run (its kernels are held first against
+their plain versions: the histograms on the corpus block, the edge blocks,
+the sidecar overflow block and the five batch rows, the refinement pass
+for every table count and a forced tie, the packer on 2^20 seeded fields,
+the payload on each block's final tables). Every phase prints one
 line; any failure raises, so the script exits non-zero without the final
 line. Without a CUDA device it exits with code 1 and prints no result.
 
@@ -59,7 +68,13 @@ bitonic_global and bitonic_tile) left the main path when the BWT moved to
 the radix sort: their main-path launches are 0, and [path] fails if one
 ran. The four batched kernels (bwt_batch, mtf_batch, rle2_batch, compact)
 count their calls in the [multihost] phase, both ranks summed; their
-times are at B = 5 level-9 rows. The port imports neither tpubz nor jax,
+times are at B = 5 level-9 rows. The five device refine rows (chunk_hist,
+chunk_hist_batch, refine_pass, pack_bits, pack_payload) count their calls
+in the [devrefine] phase, both of its legs; pack_bits counts the launches
+of the packing kernel, which pack_payload launches with the gather fused
+into it; their times are on the corpus's first block (the five rows for
+the batch, 2^20 fields for pack_bits), with torch.bincount of the flat
+index beside the histograms. The port imports neither tpubz nor jax,
 and the run
 checks that neither was loaded. The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -214,6 +229,7 @@ def _smoke(tmp):
     chain["bwt"] = bwt_kernels(padded, n0, edges)
     chain["radix"] = radix_kernels(padded, n0, rng)
     batch = batch_kernels(corpus, edges, rng)
+    dref = devrefine_kernels(corpus, edges)
 
     # the bitonic kernels against their plain versions at 2^20, exactly:
     # int32 keys in [0, 50), whose duplicates move payloads by the tie rule;
@@ -382,6 +398,7 @@ def _smoke(tmp):
     hybrid(tpubz_torch, data, stream, tmp)
     files(tpubz_torch, short, got, tmp)
     mh_launches = multihost(tpubz_torch, corpus, edges, rng, tmp)
+    dref_launches = devrefine(tpubz_torch, data, stream)
     _no_reference_modules()
 
     # the bitonic sorts' main-path launches: 0 (checked above)
@@ -436,7 +453,24 @@ def _smoke(tmp):
         ("bwt_batch", "bwt.cu", "tpubz/kernels/suffix_sort.py:170"),
         ("mtf_batch", "mtf.cu", "tpubz/kernels/mtf.py:166"),
         ("rle2_batch", "rle2.cu", "tpubz/kernels/rle2.py:113"),
-        ("compact", "compact.cu", "tpubz/block/encode.py:99"))]}), flush=True)
+        ("compact", "compact.cu", "tpubz/block/encode.py:99"))] + [{
+        "name": name,
+        "route": "cuda",
+        "source": f"tpubz_torch/csrc/{source}",
+        "replaces": replaces,
+        "launches": dref_launches[name],
+        "max_abs_err": dref[name]["max_abs_err"],
+        "ms": dref[name]["ms"],
+        "plain_ms": dref[name]["plain_ms"],
+        "bound_ms": dref[name]["bound"][0],
+        "bound_by": dref[name]["bound"][1],
+        "library_ms": dref[name].get("library_ms"),
+    } for name, source, replaces in (
+        ("chunk_hist", "huffman_dev.cu", "tpubz/kernels/huffman_dev.py:53"),
+        ("chunk_hist_batch", "huffman_dev.cu", "tpubz/kernels/huffman_dev.py:118"),
+        ("refine_pass", "huffman_dev.cu", "tpubz/kernels/huffman_dev.py:68"),
+        ("pack_bits", "bitpack.cu", "tpubz/kernels/bitpack.py:14"),
+        ("pack_payload", "bitpack.cu", "tpubz/kernels/huffman_dev.py:93"))]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
     return 0
@@ -776,6 +810,297 @@ def batch_kernels(corpus, edges, rng):
         f"B={rows}:batched={b},one_block_chain={o}" for rows, (b, o) in sizes.items())
         + " (CUDA events, corpus blocks 0-7, the batched chain with the compact form)")
     return result
+
+def _devrefine_inputs(enc, blk):
+    """A level-9 block's transform on the card and what the device refine
+    encoder fetches of it: (trans_out, rle2_len, freqs, used, alpha)."""
+    out = enc.transform(np.frombuffer(blk, np.uint8))
+    _, _, rle2_len, freqs, used = enc.fetch(out)
+    return out, rle2_len, freqs, used, int(used.sum()) + 2
+
+
+def _final_tables(enc, out, hist, rle2_len, freqs, alpha):
+    """The device refinement's final tables of a block as the encoder hands
+    them to pack_payload: (sel, codes, lens on the card, the payload's bits,
+    passes)."""
+    from tpubz_torch.block.encode import payload_tables
+    from tpubz_torch.hostref.huffman import canonical_codes
+
+    sel, lens, rfreq, tc, passes = enc.devrefine_tables(hist, rle2_len, freqs, alpha)
+    codes = np.stack([canonical_codes(lens[t, :alpha]) for t in range(tc)])
+    tables = payload_tables(sel, codes, lens, tc, alpha, out[1].shape[0], out[1].device)
+    return (*tables, int((rfreq[:tc, :alpha] * lens[:tc, :alpha]).sum()), passes)
+
+
+def devrefine_kernels(corpus, edges):
+    """The device refine kernels against their plain versions on the card,
+    exactly (whole arrays: pad rows, pad words and totals included):
+    chunk_hist on the transforms of the corpus's first level-9 block, the
+    three edge blocks and the sidecar overflow block (symbols >= 256);
+    chunk_hist_batch on _batch_level9_rows' five rows through the batched
+    transform; refine_pass on those blocks' histograms with C bzip2's
+    initial tables for each table count 2..6, and once with two identical
+    tables (a forced tie); pack_bits on 2^20 seeded fields of 0 to 24 bits;
+    pack_payload on the blocks' final tables, its total equal to the
+    refinement's count. Then on the corpus block (the five rows for the
+    batch, the 2^20 fields for pack_bits) each call's ms and the plain
+    version's (CUDA events), its device µs and launches (torch.profiler,
+    one call), torch.bincount's ms on the flat index for the histograms,
+    and the bound. Returns per kernel max_abs_err, ms, plain_ms,
+    library_ms, bound."""
+    from tpubz_torch.block.encode import DeviceBlockEncoder, block_n
+    from tpubz_torch.corpus import sidecar_overflow_block
+    from tpubz_torch.dist.sharded import make_sharded_transform
+    from tpubz_torch.hostref.huffman import c_init_tables
+    from tpubz_torch.kernels import bitpack, huffman_dev as H
+    from tpubz_torch.stage_probe import kernel_device_us
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 9)
+    enc = DeviceBlockEncoder(LEVEL)
+    blocks = {"corpus_block0": corpus[:LEVEL * 100_000], **edges,
+              "sidecar_overflow": sidecar_overflow_block()}
+    names = ",".join(blocks)
+    err = dict.fromkeys(("chunk_hist", "chunk_hist_batch", "refine_pass", "pack_bits",
+                         "pack_payload"), 0)
+
+    def held(kernel, inputs, got, want):
+        torch.cuda.synchronize()
+        mismatches = sum(int((g.long() != w.long()).sum()) for g, w in zip(got, want))
+        e = max(int((g.long() - w.long()).abs().max()) for g, w in zip(got, want))
+        err[kernel] = max(err[kernel], e)
+        _say("kernel", f"{kernel} vs plain inputs={inputs} mismatches={mismatches} "
+                f"max_abs_err={e} tolerance=0")
+        if mismatches:
+            raise AssertionError(f"{kernel} disagrees with its plain version on {inputs}")
+
+    inputs = {}
+    for name, blk in blocks.items():
+        out, rl, freqs, used, alpha = _devrefine_inputs(enc, blk)
+        syms, rl_d = out[1], out[2]
+        hist = H.chunk_hist(syms, rl_d)
+        held("chunk_hist", f"{name} rle2_len={rl} OUT={syms.shape[0]}", (hist,),
+             (H.chunk_hist_ref(syms, rl_d),))
+        for tc in range(2, 7):
+            lens = torch.from_numpy(c_init_tables(freqs, tc, alpha).astype(np.int32)).to(dev)
+            held("refine_pass", f"{name} c_init_tables table_count={tc}",
+                 H.refine_pass(hist, lens, tc), H.refine_pass_ref(hist, lens, tc))
+        lens = c_init_tables(freqs, 6, alpha).astype(np.int32)
+        lens[4] = lens[2]  # two identical tables: their groups take table 2
+        lens = torch.from_numpy(lens).to(dev)
+        held("refine_pass", f"{name} tables_2_and_4_equal table_count=6",
+             H.refine_pass(hist, lens, 6), H.refine_pass_ref(hist, lens, 6))
+        sel, codes, lens, bits, passes = _final_tables(enc, out, hist, rl, freqs, alpha)
+        words, total = H.pack_payload(syms, rl_d, sel, codes, lens)
+        held("pack_payload", f"{name} final_tables passes={passes} payload_bits={bits}",
+             (words, total), H.pack_payload_ref(syms, rl_d, sel, codes, lens))
+        if int(total) != bits:
+            raise AssertionError(f"pack_payload on {name}: {int(total)} bits, refinement {bits}")
+        inputs[name] = (syms, rl_d, rl, hist, freqs, alpha, (sel, codes, lens, bits))
+
+    data, n, row_names = _batch_level9_rows(corpus, edges, rng, dev)
+    B, N = data.shape
+    rows = make_sharded_transform(dev, N)(data, n)
+    bsyms, blens = rows[1], rows[2]
+    bhist = H.chunk_hist_batch(bsyms, blens)
+    held("chunk_hist_batch", f"{','.join(row_names)} B={B}", (bhist,),
+         (H.chunk_hist_batch_ref(bsyms, blens),))
+    one = torch.stack([H.chunk_hist(bsyms[b], blens[b]) for b in range(B)])
+    held("chunk_hist_batch", "one-block chunk_hist row by row", (bhist,), (one,))
+
+    m = 1 << 20
+    fbits = rng.integers(0, 25, m).astype(np.int32)
+    fvals = (rng.integers(0, 1 << 24, m) & ((1 << fbits) - 1)).astype(np.uint32)
+    fvals[fbits == 24] |= 1 << 23  # every 24-bit field has its top bit set
+    vals = torch.from_numpy(fvals.view(np.int32)).to(dev)
+    fb = torch.from_numpy(fbits).to(dev)
+    cap = (int(fbits.sum()) + 31) // 32 + 1
+    held("pack_bits", f"seeded_fields_0_to_24_bits n={m} total_bits={int(fbits.sum())}",
+         bitpack.pack_bits_device(vals, fb, cap), bitpack.pack_bits_device_ref(vals, fb, cap))
+
+    syms, rl_d, rl, hist, freqs, alpha, (sel, codes, lens, bits) = inputs["corpus_block0"]
+    OUT = syms.shape[0]
+    nsel = H.nsel_cap(OUT)
+    lens6 = torch.from_numpy(c_init_tables(freqs, 6, alpha).astype(np.int32)).to(dev)
+    idx = torch.arange(OUT, dtype=torch.int64, device=dev)
+    flat = (idx // 50 * 258 + syms)[idx < rl_d]
+    bidx = torch.arange(N + 8, dtype=torch.int64, device=dev)[None, :]
+    bflat = ((torch.arange(B, device=dev)[:, None] * nsel + bidx // 50) * 258
+             + bsyms.to(torch.int64))[bidx < blens[:, None]]
+    hist_bytes = nsel * 258 * 4
+    words_out = H.payload_words_cap(OUT) * 4 + 8
+    timed = {
+        # symbols of the stream in, the whole histogram out
+        "chunk_hist": (lambda: H.chunk_hist(syms, rl_d), lambda: H.chunk_hist_ref(syms, rl_d),
+                       lambda: torch.bincount(flat, minlength=nsel * 258),
+                       _bound(4 * rl + 8 + hist_bytes, rl), 20, f"corpus_block0 OUT={OUT}"),
+        "chunk_hist_batch": (lambda: H.chunk_hist_batch(bsyms, blens),
+                             lambda: H.chunk_hist_batch_ref(bsyms, blens),
+                             lambda: torch.bincount(bflat, minlength=B * nsel * 258),
+                             _bound(2 * int(blens.sum()) + 4 * B + B * hist_bytes,
+                                    int(blens.sum())), 20, f"{','.join(row_names)} B={B}"),
+        # the histogram and the lengths in; selectors and frequencies out;
+        # a multiply and an add per count and table
+        "refine_pass": (lambda: H.refine_pass(hist, lens6, 6),
+                        lambda: H.refine_pass_ref(hist, lens6, 6), None,
+                        _bound(hist_bytes + 2 * 6 * 258 * 4 + nsel, 2 * 6 * 258 * nsel), 20,
+                        "corpus_block0 c_init_tables table_count=6"),
+        # values and lengths in, the words and the total out
+        "pack_bits": (lambda: bitpack.pack_bits_device(vals, fb, cap),
+                      lambda: bitpack.pack_bits_device_ref(vals, fb, cap), None,
+                      _bound(8 * m + 4 * cap + 8, m), 20, f"seeded_fields n={m}"),
+        # symbols of the stream, selectors and tables in; the words out
+        "pack_payload": (lambda: H.pack_payload(syms, rl_d, sel, codes, lens),
+                         lambda: H.pack_payload_ref(syms, rl_d, sel, codes, lens), None,
+                         _bound(4 * rl + 8 + nsel + 2 * 6 * 258 * 4 + words_out, rl), 20,
+                         f"corpus_block0 final_tables payload_bits={bits}"),
+    }
+    result = {}
+    for name, (run, plain, library, bound, reps, what) in timed.items():
+        ms, plain_ms = _cuda_ms(run, reps), _cuda_ms(plain, 3)
+        library_ms = _cuda_ms(library, reps) if library else None
+        prof = kernel_device_us(run)
+        result[name] = {"max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
+                        "library_ms": library_ms, "bound": bound, "device_us": prof["sum_us"]}
+        _say("kernel", f"{name} kernel_ms={ms} plain_ms={plain_ms} "
+                + (f"torch_bincount_ms={library_ms} " if library else "")
+                + f"device_us={prof['sum_us']} device_launches={prof['launches']} "
+                f"bound_us={bound[0] * 1e3} bound_by={bound[1]} (CUDA events; device time "
+                f"from torch.profiler, one call; inputs={what})")
+    return result
+
+
+class _PlainCalls:
+    """Counts the calls of the device refine kernels' plain versions while
+    it is entered: each wrapper reaches its plain version through its
+    module, so the counting stand-in sees every call."""
+
+    def __init__(self):
+        from tpubz_torch.kernels import bitpack, huffman_dev
+
+        self.targets = [(huffman_dev, n) for n in ("chunk_hist_ref", "chunk_hist_batch_ref",
+                                                   "refine_pass_ref", "pack_payload_ref")]
+        self.targets.append((bitpack, "pack_bits_device_ref"))
+        self.calls = {n: 0 for _, n in self.targets}
+
+    def __enter__(self):
+        self.saved = [getattr(mod, n) for mod, n in self.targets]
+        for (mod, n), fn in zip(self.targets, self.saved):
+            def counted(*a, _fn=fn, _n=n, **k):
+                self.calls[_n] += 1
+                return _fn(*a, **k)
+            setattr(mod, n, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for (mod, n), fn in zip(self.targets, self.saved):
+            setattr(mod, n, fn)
+
+
+def devrefine(tpubz_torch, data, stream):
+    """The device refine encoder on [path]'s data, its counts read from zero:
+    every level-9 block through DeviceBlockEncoder.transform and
+    encode_block_devrefine (chunk_hist, the refine_pass of each pass, and
+    pack_payload's fused packing kernel), spliced with the stream header,
+    the CRC fold and the footer as stream/api.py's _compress_impl does; then
+    the same blocks as rows of the batched transform (make_sharded_transform,
+    up to 8 rows a call), each call's histograms in one chunk_hist_batch
+    launch and each row through encode_block_devrefine with its histogram.
+    Both streams must equal [path]'s and round-trip through
+    tpubz_torch.decompress and bunzip2; every kernel must have launched and
+    no plain version run. Host ms a block of encode_block_devrefine (the
+    transform done and waited for) against emit_block on the same fetched
+    blocks, and the refinement passes a block. Returns the launches by
+    kernel name."""
+    from tpubz_torch.block.encode import DeviceBlockEncoder
+    from tpubz_torch.dist.sharded import make_sharded_transform
+    from tpubz_torch.format.constants import FOOTER_MAGIC, STREAM_MAGIC, block_budget
+    from tpubz_torch.format.crc import block_crc, stream_crc_fold
+    from tpubz_torch.hostref.bitio import BitAccum, IncrementalSplicer
+    from tpubz_torch.hostref.rle1 import rle1_blocks
+    from tpubz_torch.kernels import bitpack, huffman_dev as H
+
+    arr = np.frombuffer(data, np.uint8)
+    out, cuts = rle1_blocks(arr, block_budget(LEVEL))
+    blocks = [(out[o0:o1], block_crc(arr[i0:i1])) for o0, o1, i0, i1 in cuts]
+    enc = DeviceBlockEncoder(LEVEL)
+
+    def splice(accs):
+        header = BitAccum()
+        for b in STREAM_MAGIC:
+            header.put(b, 8)
+        header.put(0x30 + LEVEL, 8)
+        splicer = IncrementalSplicer(cap_hint=arr.size // 2 + 64)
+        splicer.add(*header.pack())
+        s_crc = 0
+        for (_, crc), acc in zip(blocks, accs):
+            s_crc = stream_crc_fold(s_crc, crc)
+            splicer.add(*acc.pack())
+        footer = BitAccum()
+        footer.put(FOOTER_MAGIC, 48)
+        footer.put(s_crc, 32)
+        splicer.add(*footer.pack())
+        return splicer.finish()[0]
+
+    H.HIST_LAUNCHES = H.HIST_BATCH_LAUNCHES = H.REFINE_LAUNCHES = H.PAYLOAD_LAUNCHES = 0
+    bitpack.LAUNCHES = 0
+    torch.cuda.synchronize()
+    with _PlainCalls() as plain:
+        dev_ms, emit_ms, accs = [], [], []
+        t0 = time.perf_counter()
+        for blk, crc in blocks:
+            trans = enc.transform(blk)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            accs.append(enc.encode_block_devrefine(trans, crc))
+            dev_ms.append((time.perf_counter() - t1) * 1e3)
+            fetched = enc.fetch(trans)
+            t1 = time.perf_counter()
+            enc.emit_block(*fetched, crc)
+            emit_ms.append((time.perf_counter() - t1) * 1e3)
+        one_block_s = time.perf_counter() - t0
+        got = splice(accs)
+        passes = H.REFINE_LAUNCHES
+        transform = make_sharded_transform(torch.device("cuda"), enc.N)
+        accs = []
+        for lo in range(0, len(blocks), 8):
+            part = blocks[lo: lo + 8]
+            rows = torch.zeros(len(part), enc.N, dtype=torch.uint8)
+            for b, (blk, _) in enumerate(part):
+                rows[b, : blk.size] = torch.from_numpy(np.array(blk))
+            keys, syms, rle2_len, freqs, used = transform(rows, [blk.size for blk, _ in part])[:5]
+            hist = H.chunk_hist_batch(syms, rle2_len)
+            for b, (_, crc) in enumerate(part):
+                accs.append(enc.encode_block_devrefine(
+                    (keys[b], syms[b], rle2_len[b], freqs[b], used[b]), crc, hist=hist[b]))
+        got_rows = splice(accs)
+        torch.cuda.synchronize()
+    launches = {"chunk_hist": H.HIST_LAUNCHES, "chunk_hist_batch": H.HIST_BATCH_LAUNCHES,
+                "refine_pass": H.REFINE_LAUNCHES, "pack_payload": H.PAYLOAD_LAUNCHES,
+                "pack_bits": bitpack.LAUNCHES}
+    n = len(blocks)
+    if got != stream or got_rows != stream:
+        raise AssertionError("the device refine streams differ from [path]'s")
+    if tpubz_torch.decompress(got) != data:
+        raise AssertionError("tpubz_torch.decompress round trip of the device refine stream failed")
+    ran = ["tpubz_torch.decompress"] + ["bunzip2"] * _bunzip2_ok(got, data)
+    if (launches["chunk_hist"] != n or launches["chunk_hist_batch"] != -(-n // 8)
+            or launches["pack_payload"] != 2 * n or launches["pack_bits"] != 2 * n
+            or passes < 4 * n or launches["refine_pass"] != 2 * passes):
+        raise AssertionError(f"device refine launches {launches} for {n} blocks, {passes} passes")
+    if any(plain.calls.values()):
+        raise AssertionError(f"plain versions ran in [devrefine]: {plain.calls}")
+    _say("devrefine", f"blocks={n} stream==path_stream rows_stream==path_stream "
+         f"round_trips={'+'.join(ran)} launches={launches} plain_calls={plain.calls} "
+         f"passes_per_block={passes / n} passes={passes} "
+         f"devrefine_host_ms_per_block_median={float(np.median(dev_ms))} "
+         f"devrefine_host_ms_per_block_range=[{min(dev_ms)},{max(dev_ms)}] "
+         f"emit_block_host_ms_per_block_median={float(np.median(emit_ms))} "
+         f"emit_block_host_ms_per_block_range=[{min(emit_ms)},{max(emit_ms)}] "
+         f"one_block_leg_seconds={one_block_s} (host clock; devrefine from the transform's "
+         f"outputs on the card to the packed block, emit_block from the fetched block; "
+         f"one thread each, one after the other)")
+    return launches
 
 
 def stage_bwt(tpubz_torch, data, stream):

@@ -686,3 +686,132 @@ def test_compress_multihost_one_process_on_card(cuda):
     assert all(a - b >= 9 for a, b in zip(after, before))
     assert got == tpubz_torch.compress(d, 1, device="cuda") == compress_cpu(d, 1)
     assert decompress_multihost(got) == d
+
+
+_DEVREFINE_BLOCKS = ["corpus_block0", "near_periodic", "one_byte_run", "all256", "overflow"]
+
+
+def _level9_transform(name, enc):
+    """The one-block transform on the card of a level-9 block: the corpus's
+    first 900,000 bytes, an edge block or the sidecar overflow block."""
+    from tpubz_torch.corpus import sidecar_overflow_block
+
+    if name == "corpus_block0":
+        blk = mixed_corpus(1, 2026)[:900_000]
+    elif name == "overflow":
+        blk = sidecar_overflow_block()
+    else:
+        blk = edge_blocks()[name]
+    return enc.transform(np.frombuffer(blk, np.uint8))
+
+
+@pytest.mark.parametrize("name", _DEVREFINE_BLOCKS)
+def test_devrefine_kernels_match_plain_level9(cuda, name):
+    """On a level-9 block's transform: chunk_hist, refine_pass for every
+    table count and with two equal tables, and pack_payload on the final
+    tables equal their plain versions on the card, whole arrays; each call
+    counts one launch, and pack_payload's total is the refinement's."""
+    from tpubz_torch.block.encode import payload_tables
+    from tpubz_torch.hostref.huffman import c_init_tables, canonical_codes
+    from tpubz_torch.kernels import bitpack, huffman_dev as H
+
+    enc = DeviceBlockEncoder(9)
+    out = _level9_transform(name, enc)
+    _, syms, rl_d, freqs_d, used_d = out
+    freqs, used = freqs_d.cpu().numpy(), used_d.cpu().numpy()
+    alpha, rl = int(used.sum()) + 2, int(rl_d)
+    before = H.HIST_LAUNCHES
+    hist = H.chunk_hist(syms, rl_d)
+    torch.cuda.synchronize()
+    assert H.HIST_LAUNCHES == before + 1
+    assert torch.equal(hist, H.chunk_hist_ref(syms, rl_d))
+    for tc in range(2, 7):
+        lens = c_init_tables(freqs, tc, alpha).astype(np.int32)
+        if tc == 6:
+            lens[5] = lens[1]
+        lens = torch.from_numpy(lens).to(cuda)
+        before = H.REFINE_LAUNCHES
+        got = H.refine_pass(hist, lens, tc)
+        torch.cuda.synchronize()
+        assert H.REFINE_LAUNCHES == before + 1
+        for g, w in zip(got, H.refine_pass_ref(hist, lens, tc)):
+            assert g.dtype == w.dtype and torch.equal(g, w)
+    sel, lens, rfreq, tc, passes = enc.devrefine_tables(hist, rl, freqs, alpha)
+    codes = np.stack([canonical_codes(lens[t, :alpha]) for t in range(tc)])
+    args = (syms, rl_d, *payload_tables(sel, codes, lens, tc, alpha, syms.shape[0], cuda))
+    before = (H.PAYLOAD_LAUNCHES, bitpack.LAUNCHES)
+    words, total = H.pack_payload(*args)
+    torch.cuda.synchronize()
+    assert (H.PAYLOAD_LAUNCHES, bitpack.LAUNCHES) == (before[0] + 1, before[1] + 1)
+    rwords, rtotal = H.pack_payload_ref(*args)
+    assert torch.equal(words, rwords) and int(total) == int(rtotal)
+    assert int(total) == int((rfreq[:tc, :alpha] * lens[:tc, :alpha]).sum()) and passes >= 4
+
+
+@pytest.mark.parametrize("B", list(_BATCHES))
+def test_chunk_hist_batch_on_card(cuda, B):
+    """The batched histogram of the batched transform's rows equals its
+    plain version and the one-block kernel row by row."""
+    from tpubz_torch.dist.sharded import make_sharded_transform
+    from tpubz_torch.kernels import huffman_dev as H
+
+    data, n = _batch_rows(B, cuda)
+    _, syms, rle2_len = make_sharded_transform(cuda, 900_096)(data, n)[:3]
+    before = H.HIST_BATCH_LAUNCHES
+    hist = H.chunk_hist_batch(syms, rle2_len)
+    torch.cuda.synchronize()
+    assert H.HIST_BATCH_LAUNCHES == before + 1
+    assert torch.equal(hist, H.chunk_hist_batch_ref(syms, rle2_len))
+    for b in range(B):
+        assert torch.equal(hist[b], H.chunk_hist(syms[b], rle2_len[b]))
+
+
+@pytest.mark.parametrize("m", [1, 4095, 4096, 4097, 1 << 20])
+def test_pack_bits_on_card_matches_plain(cuda, m):
+    """Fields of 0 to 24 bits (zero-length ones, all-ones 24-bit ones, ones
+    that cross a word) across tile edges: words and total equal the plain
+    version's; with too few words the fields past them are dropped."""
+    from tpubz_torch.kernels import bitpack
+
+    rng = np.random.default_rng(m)
+    bits = rng.integers(0, 25, m).astype(np.int32)
+    bits[3::11] = 24
+    vals = (rng.integers(0, 1 << 24, m) & ((1 << bits) - 1)).astype(np.uint32)
+    vals[bits == 24] = (1 << 24) - 1
+    v = torch.from_numpy(vals.view(np.int32)).to(cuda)
+    b = torch.from_numpy(bits).to(cuda)
+    for cap in ((int(bits.sum()) + 31) // 32 + 1, max(1, int(bits.sum()) // 64)):
+        words, total = bitpack.pack_bits_device(v, b, cap)
+        rwords, rtotal = bitpack.pack_bits_device_ref(v, b, cap)
+        torch.cuda.synchronize()
+        assert torch.equal(words, rwords) and int(total) == int(rtotal) == int(bits.sum())
+
+
+@pytest.mark.parametrize("name", _DEVREFINE_BLOCKS)
+def test_encode_block_devrefine_on_card_matches_emit_block(cuda, name):
+    """encode_block_devrefine on the card gives emit_block's bytes for the
+    fetched block, through the kernels and none of their plain versions."""
+    from tpubz_torch.kernels import huffman_dev as H
+
+    enc = DeviceBlockEncoder(9)
+    out = _level9_transform(name, enc)
+    before = (H.HIST_LAUNCHES, H.REFINE_LAUNCHES, H.PAYLOAD_LAUNCHES)
+    got = enc.encode_block_devrefine(out, 0x9ABCDEF0).pack()
+    assert got == enc.emit_block(*enc.fetch(out), 0x9ABCDEF0).pack()
+    after = (H.HIST_LAUNCHES, H.REFINE_LAUNCHES, H.PAYLOAD_LAUNCHES)
+    assert after[0] == before[0] + 1 and after[1] >= before[1] + 4
+    assert after[2] == before[2] + 1
+
+
+def test_devrefine_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    from tpubz_torch.kernels import bitpack, huffman_dev as H
+
+    syms = torch.zeros(1000, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        H.chunk_hist(syms.to(torch.int64), 10)
+    with pytest.raises(TypeError):
+        H.chunk_hist(syms, torch.tensor(10.0, device=cuda))
+    with pytest.raises(ValueError):
+        H.chunk_hist_batch(syms.view(1, -1), torch.tensor([1, 2], device=cuda))
+    with pytest.raises(TypeError):
+        bitpack.pack_bits_device(syms.to(torch.int64), syms.to(torch.int64), 10)

@@ -64,6 +64,10 @@ _SURFACES = textwrap.dedent("""
     for name in (src + ".bz2", src + ".run.bz2"):
         with open(name, "rb") as f:
             assert f.read() == z
+    from tpubz_torch.block.encode import DeviceBlockEncoder
+    enc = DeviceBlockEncoder(1, device="cpu")
+    out = enc.transform(np.frombuffer(d[:100_000], np.uint8))
+    assert enc.encode_block_devrefine(out, 7).pack() == enc.emit_block(*enc.fetch(out), 7).pack()
     print(" ".join(sorted(m for m in sys.modules
                           if m == "jax" or m.startswith("jax.")
                           or m == "tpubz" or m.startswith("tpubz."))))
@@ -73,8 +77,9 @@ _SURFACES = textwrap.dedent("""
 def test_public_surfaces_load_no_tpubz_and_no_jax(tmp_path):
     """compress(device="cpu"), compress_cpu, decompress, the multi-process
     path's compress_multihost and decompress_multihost (one process),
-    open("wb"/"rb"), BZ2Compressor/BZ2Decompressor, cli.run and
-    ``python -m tpubz_torch -k`` run in a fresh interpreter, which then
+    open("wb"/"rb"), BZ2Compressor/BZ2Decompressor, cli.run,
+    ``python -m tpubz_torch -k`` and the device refine block encoder
+    (``encode_block_devrefine``) run in a fresh interpreter, which then
     holds no tpubz* and no jax* module."""
     env = dict(os.environ, PYTHONPATH=ROOT, TPUBZ_TORCH_CACHE=str(tmp_path / "cache"))
     proc = subprocess.run([sys.executable, "-c", _SURFACES, str(tmp_path)], cwd=str(tmp_path),
@@ -192,9 +197,19 @@ def _decode(mod, arr):
     return tuple(out)
 
 
+def _code_lengths(mod, arr):
+    freqs = np.bincount(arr, minlength=258).astype(np.int64)
+    return tuple(mod.code_lengths_native(freqs, alpha) for alpha in (2, 7, 258))
+
+
+def _mtf_selectors(mod, arr):
+    return mod.mtf_selectors_native((arr % 6).astype(np.int32))
+
+
 _ENTRY_POINTS = {
     "rle1_split": _rle1, "mtf_rle2": _mtf_rle2, "block_transform": _transform,
     "emit_block": _emit, "block_crc": _crc, "magic_scan": _magic, "decode_block": _decode,
+    "code_lengths": _code_lengths, "mtf_selectors": _mtf_selectors,
 }
 
 
@@ -203,7 +218,7 @@ _ENTRY_POINTS = {
 def test_native_entry_point_matches_tpubz(entry, case, tpubz_native):
     """The port's native entry point gives tpubz.native's output on the same
     input, exactly: RLE1 split, MTF/RLE2, block transform, emission, CRC,
-    magic scan and block decode."""
+    magic scan, block decode, a table's code lengths and the selector MTF."""
     arr = _inputs()[case]
     fn = _ENTRY_POINTS[entry]
     _equal(fn(pnative, arr), fn(tnative, arr))

@@ -19,6 +19,27 @@ def block_budget(level: int) -> int:
     return level * 100_000 - 19
 
 
+# Huffman coding: symbols a selector group, tables, alphabet (256 byte
+# symbols + RUNA/RUNB overlay + EOB) and the longest code the encoder emits
+GROUP_SIZE = 50
+MAX_GROUPS = 6
+MAX_ALPHA_SIZE = 258
+MAX_CODE_LEN_ENCODE = 17
+
+
+def group_count_for(rle2_len: int) -> int:
+    """Huffman tables for a block of ``rle2_len`` RLE2 symbols."""
+    if rle2_len < 200:
+        return 2
+    if rle2_len < 600:
+        return 3
+    if rle2_len < 1200:
+        return 4
+    if rle2_len < 2400:
+        return 5
+    return 6
+
+
 # Huffman refinement passes. The emitter keeps the best snapshot by exact
 # emitted size, so more passes can only shrink the output; the first 4 are
 # C bzip2's trajectory, which pins the output at or below C's size.

@@ -1,8 +1,8 @@
 """MSB-first bit accumulation, splicing and reading on the host.
 
 The counterpart of ``tpubz/hostref/bitio.py`` for what the port's stream
-assembly and decoders use: ``BitAccum`` (header and footer fields, and the
-emitted blocks as byte runs), ``pack_bits`` on the native packer,
+assembly and decoders use: ``BitAccum`` (header and footer fields, the
+emitted blocks as byte runs, and payload words packed on the device), ``pack_bits`` on the native packer,
 ``splice_byte_chunks`` and ``IncrementalSplicer`` (blocks joined at bit
 granularity) and ``BitReader`` (header fields of the decoders).
 """
@@ -61,6 +61,22 @@ class BitAccum:
         self._flush_pending()
         self._chunks.append(("f", vals, bits))
         self._total += int(bits.sum())
+
+    def put_words(self, words: np.ndarray, nbits: int) -> None:
+        """Append ``nbits`` of pre-packed MSB-first uint32 words (a payload
+        packed on the device). Stored as a byte run, big-endian, with the
+        bits of the last word past ``nbits`` zeroed."""
+        if nbits == 0:
+            return
+        nw = (nbits + 31) // 32
+        w = np.ascontiguousarray(np.asarray(words[:nw], dtype=np.uint32))
+        pad = nw * 32 - nbits
+        if pad:
+            w = w.copy()
+            w[-1] &= np.uint32(0xFFFFFFFF) << np.uint32(pad)
+        self._flush_pending()
+        self._chunks.append(("b", w.astype(">u4").tobytes(), nbits))
+        self._total += nbits
 
     def put_bytes(self, data: bytes, nbits: int) -> None:
         """Append ``nbits`` of pre-packed MSB-first bytes (the pad bits of

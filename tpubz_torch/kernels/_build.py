@@ -74,6 +74,16 @@ SIGNATURES = {
                          _INTS, _P],
     # n, sizes (out, 2 ints: scratch bytes, digit bits)
     "tpubz_radix_sizes": [ctypes.c_int, _INTS],
+    # syms, their bytes, rle2_len, its bytes, B, OUT, hist, stream
+    "tpubz_chunk_hist": [_P, ctypes.c_int, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P],
+    # hist, lens, table count, nsel, sel, rfreq, stream
+    "tpubz_refine_pass": [_P, _P, ctypes.c_int, ctypes.c_int, _P, _P, _P],
+    # vals, bits, m, out words, scratch, words, total, stream
+    "tpubz_pack_bits_device": [_P, _P, ctypes.c_int, ctypes.c_longlong, _P, _P, _P, _P],
+    # syms, their bytes, rle2_len, its bytes, sel, codes, lens, m, out words,
+    # scratch, words, total, stream
+    "tpubz_pack_payload": [_P, ctypes.c_int, _P, ctypes.c_int, _P, _P, _P, ctypes.c_int,
+                           ctypes.c_longlong, _P, _P, _P, _P],
 }
 
 _lock = threading.Lock()

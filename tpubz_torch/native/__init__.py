@@ -45,6 +45,8 @@ SIGNATURES = {
     "tpubz_decode_block": (_I64, [_P, _I64, _I64, _I32, _P, _I64, _P, _P, _P]),
     "tpubz_find_magic": (_I64, [_P, _I64, _U64, _P, _I64]),
     "tpubz_find_magic2": (None, [_P, _I64, _U64, _U64, _P, _I64, _P, _P, _I64, _P]),
+    "tpubz_code_lengths": (None, [_P, _I32, _P]),
+    "tpubz_mtf_selectors": (None, [_P, _I64, _P]),
 }
 
 _lock = threading.Lock()
@@ -139,6 +141,24 @@ def rle1_split_window(arr: np.ndarray, start: int, end: int, budget: int,
     if nb > cap:
         raise RuntimeError("rle1 block capacity underestimated")
     return [tuple(int(x) for x in row) for row in blocks[:nb]], int(out_len[0])
+
+
+def code_lengths_native(freqs: np.ndarray, alpha: int) -> np.ndarray:
+    """C bzip2's code lengths of one table from its symbol frequencies
+    (17-bit cap, weights flattened and the tree built again while a code is
+    longer): int64[alpha]."""
+    f = np.ascontiguousarray(freqs[:alpha], dtype=np.int64)
+    out = np.zeros(alpha, dtype=np.int32)
+    get_lib().tpubz_code_lengths(f.ctypes.data, alpha, out.ctypes.data)
+    return out.astype(np.int64)
+
+
+def mtf_selectors_native(selectors: np.ndarray) -> np.ndarray:
+    """The move-to-front indices of a block's selectors: int64[nsel]."""
+    sel = np.ascontiguousarray(selectors, dtype=np.int32)
+    out = np.zeros(sel.size, dtype=np.int32)
+    get_lib().tpubz_mtf_selectors(sel.ctypes.data, sel.size, out.ctypes.data)
+    return out.astype(np.int64)
 
 
 def pack_bits_native(vals: np.ndarray, bits: np.ndarray) -> bytes:

@@ -1,7 +1,7 @@
 """Where a level-9 stream's time goes on the card, route by route.
 
     python3 -m tpubz_torch.stage_probe [--mib 16] [--seed 2026] [--out FILE]
-                                       [--mode all|bwt_anatomy]
+                                       [--mode all|bwt_anatomy|devrefine]
                                        [--parent DIR [--reps 1]]
 
 Needs a CUDA card: without one it exits with code 1. The functions take a
@@ -48,6 +48,12 @@ mixed corpus plus the edge blocks (``tpubz_torch.corpus``, as
   device-only stream per stage, with no profiler, the wall, the sum of each
   block's span on the card (CUDA events before its first kernel and after
   its copies are enqueued) and the share of the wall outside those spans;
+- ``devrefine`` (also alone with ``--mode devrefine``): the device refine
+  encoder (``DeviceBlockEncoder.encode_block_devrefine``) on every block
+  of the data after its transform: host ms a block without a profiler,
+  the refinement passes, and the functions with the most own time over
+  all blocks under ``cProfile`` (which slows every Python call it sees:
+  read the shares, not the sums);
 - ``turns``: with ``--parent``, from a fresh process of the parent's tree
   and of this one in the order parent, this, this, parent (``--reps``
   times): ``bwt_forward``, ``mtf_ranks`` and ``rle2_encode`` ms on the
@@ -568,12 +574,45 @@ def turns(parent: str, reps: int, mib: int, seed: int) -> list[dict]:
     return out
 
 
+def devrefine_anatomy(data: bytes, level: int, device, top: int = 20) -> dict:
+    """Host time of encode_block_devrefine per block of ``data`` (the
+    transform done and drained first), and a cProfile of the same calls."""
+    import cProfile
+    import pstats
+
+    from .kernels import huffman_dev
+
+    enc = DeviceBlockEncoder(level, device)
+    prof = cProfile.Profile()
+    ms, profiled_ms, passes = [], [], 0
+    for blk, crc in _blocks(data, level):
+        trans, _ = _timed(lambda: enc.transform(blk), device)
+        before = huffman_dev.REFINE_LAUNCHES
+        _, t = _timed(lambda: enc.encode_block_devrefine(trans, crc), device)
+        ms.append(t)
+        passes += huffman_dev.REFINE_LAUNCHES - before
+        prof.enable()
+        _, t = _timed(lambda: enc.encode_block_devrefine(trans, crc), device)
+        prof.disable()
+        profiled_ms.append(t)
+    stats = pstats.Stats(prof).stats
+    rows = sorted(stats.items(), key=lambda kv: -kv[1][2])[:top]
+    return {
+        "blocks": len(ms), "passes": passes,
+        "ms_per_block": {"median": statistics.median(ms), "min": min(ms), "max": max(ms)},
+        "profiled_ms_per_block_median": statistics.median(profiled_ms),
+        "top_own_time": [{"function": f"{os.path.basename(f)}:{line}({name})", "calls": nc,
+                          "own_ms": tt * 1e3, "cumulative_ms": ct * 1e3}
+                         for (f, line, name), (_, nc, tt, ct, _) in rows],
+    }
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--mib", type=int, default=16)
     ap.add_argument("--seed", type=int, default=2026)
     ap.add_argument("--out")
-    ap.add_argument("--mode", choices=("all", "bwt_anatomy"), default="all")
+    ap.add_argument("--mode", choices=("all", "bwt_anatomy", "devrefine"), default="all")
     ap.add_argument("--parent")
     ap.add_argument("--reps", type=int, default=1)
     args = ap.parse_args(argv)
@@ -597,7 +636,10 @@ def main(argv=None) -> int:
 
         rigprofile.reset_memo()
         result["bytes"] = len(data)
-        result["bwt_anatomy"] = bwt_anatomy(data)
+        if args.mode != "bwt_anatomy":
+            result["devrefine"] = devrefine_anatomy(data, 9, "cuda")
+        if args.mode != "devrefine":
+            result["bwt_anatomy"] = bwt_anatomy(data)
         if args.mode == "all":
             result.update({
                 "chain": chain_profile(args.mib, args.seed),
