@@ -47,9 +47,23 @@ launched and no plain version run (its kernels are held first against
 their plain versions: the histograms on the corpus block, the edge blocks,
 the sidecar overflow block and the five batch rows, the refinement pass
 for every table count and a forced tie, the packer on 2^20 seeded fields,
-the payload on each block's final tables). Every phase prints one
-line; any failure raises, so the script exits non-zero without the final
-line. Without a CUDA device it exits with code 1 and prints no result.
+the payload on each block's final tables). The lean chain ([lean]) runs
+DeviceBlockEncoder.transform(blk, lean=True) on [path]'s blocks and the
+sidecar overflow block, each fetch equal to the int16 form's field by
+field, and encode_block (which takes the lean chain) on [path]'s blocks,
+spliced, equal to [path]'s stream and round-tripped; rle2_compact must
+have launched on every lean transform and its plain version never. The
+inverse BWT ([ibwt]) runs bwt_inverse_device on every block's (key, last
+column) from transform_bwt, each equal to the RLE1 block, with its next
+pointers and ceil(log2 n) doubling rounds on the card and no plain
+version; it prints its ms a block beside decompress's. Those kernels are
+held first against their plain versions: rle2_compact on the MTF ranks of
+the corpus block, the edge blocks, the sidecar overflow block and random
+ranks with long zero runs and EOB 257; next_pointers and the inverse on
+those blocks' BWT, a shorter block with pad lanes and n = 0, 1, 2. Every
+phase prints one line; any failure raises, so the script exits non-zero
+without the final line. Without a CUDA device it exits with code 1 and
+prints no result.
 
 The line before the last is {"kernels": [...]}: per kernel its launches in
 the main-path run, its largest difference from the plain version, its time,
@@ -74,7 +88,10 @@ in the [devrefine] phase, both of its legs; pack_bits counts the launches
 of the packing kernel, which pack_payload launches with the gather fused
 into it; their times are on the corpus's first block (the five rows for
 the batch, 2^20 fields for pack_bits), with torch.bincount of the flat
-index beside the histograms. The port imports neither tpubz nor jax,
+index beside the histograms. rle2_compact counts its calls in [lean] (the
+full stage fetches the int16 form); next_pointers (torch.sort(stable=True) beside it) and bwt_inverse
+count theirs in [ibwt], each inverse call running the next pointers once;
+their times are on the corpus's first block. The port imports neither tpubz nor jax,
 and the run
 checks that neither was loaded. The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -108,14 +125,28 @@ def _say(phase, msg):
 
 
 def _zero_counts():
-    from tpubz_torch.kernels import bitonic, mtf, radix, rle2, suffix_sort
+    from tpubz_torch.kernels import bitonic, compact, ibwt, mtf, radix, rle2, suffix_sort
 
-    mtf.LAUNCHES = rle2.LAUNCHES = 0
+    mtf.LAUNCHES = rle2.LAUNCHES = compact.LEAN_LAUNCHES = 0
+    ibwt.NEXT_LAUNCHES = ibwt.INVERSE_LAUNCHES = ibwt.ROUNDS_RUN = 0
     suffix_sort.LAUNCHES = suffix_sort.ROUNDS_RUN = suffix_sort.KERNEL_LAUNCHES = 0
     suffix_sort.ACTIVE_SORTED = 0
     radix.LAUNCHES = radix.SORTS = radix.PASS_LAUNCHES = 0
     bitonic.LAUNCHES = bitonic.PASS_LAUNCHES = 0
     bitonic.CALLS.update(dict.fromkeys(bitonic.CALLS, 0))
+
+
+class _PhaseClock:
+    """Seconds between marks, by the name of the part that just ended."""
+
+    def __init__(self):
+        self.seconds = {}
+        self._t = time.perf_counter()
+
+    def mark(self, name):
+        now = time.perf_counter()
+        self.seconds[name] = now - self._t
+        self._t = now
 
 
 def _bound(nbytes, ops):
@@ -225,11 +256,17 @@ def _smoke(tmp):
     padded = torch.zeros(N, dtype=torch.uint8, device=dev)
     padded[:n0] = torch.frombuffer(bytearray(corpus[:n0]), dtype=torch.uint8).to(dev)
     rng = np.random.default_rng(SEED)
+    clock = _PhaseClock()
     chain = chain_kernels(padded, n0, edges, rng)
     chain["bwt"] = bwt_kernels(padded, n0, edges)
     chain["radix"] = radix_kernels(padded, n0, rng)
+    clock.mark("kernel_chain")
     batch = batch_kernels(corpus, edges, rng)
+    clock.mark("kernel_batch")
     dref = devrefine_kernels(corpus, edges)
+    clock.mark("kernel_devrefine")
+    li = lean_ibwt_kernels(padded, n0, edges)
+    clock.mark("kernel_lean_ibwt")
 
     # the bitonic kernels against their plain versions at 2^20, exactly:
     # int32 keys in [0, 50), whose duplicates move payloads by the tie rule;
@@ -394,12 +431,24 @@ def _smoke(tmp):
             f"bitonic_pass_kernel_launches={pass_launches} MB={mb} seconds={dt} "
             f"MBps={mb / dt} tpubz_imported=False jax_imported=False")
 
+    clock.mark("bitonic_bwt_short_path")
     stage_bwt(tpubz_torch, data, stream)
+    clock.mark("stage_bwt")
     hybrid(tpubz_torch, data, stream, tmp)
+    clock.mark("hybrid")
     files(tpubz_torch, short, got, tmp)
+    clock.mark("files")
     mh_launches = multihost(tpubz_torch, corpus, edges, rng, tmp)
+    clock.mark("multihost")
     dref_launches = devrefine(tpubz_torch, data, stream)
+    clock.mark("devrefine")
+    li_launches = lean(tpubz_torch, data, stream)
+    clock.mark("lean")
+    li_launches.update(inverse(tpubz_torch, data, stream))
+    clock.mark("ibwt")
     _no_reference_modules()
+    _say("timing", " ".join(f"{k}_s={v}" for k, v in clock.seconds.items())
+         + " (host clock from the end of the build; the kernel checks, then the phases)")
 
     # the bitonic sorts' main-path launches: 0 (checked above)
     sorts = [
@@ -470,7 +519,23 @@ def _smoke(tmp):
         ("chunk_hist_batch", "huffman_dev.cu", "tpubz/kernels/huffman_dev.py:118"),
         ("refine_pass", "huffman_dev.cu", "tpubz/kernels/huffman_dev.py:68"),
         ("pack_bits", "bitpack.cu", "tpubz/kernels/bitpack.py:14"),
-        ("pack_payload", "bitpack.cu", "tpubz/kernels/huffman_dev.py:93"))]}), flush=True)
+        ("pack_payload", "bitpack.cu", "tpubz/kernels/huffman_dev.py:93"))] + [{
+        "name": name,
+        "route": "cuda",
+        "source": f"tpubz_torch/csrc/{source}",
+        "replaces": replaces,
+        "launches": count,
+        "max_abs_err": li[name]["max_abs_err"],
+        "ms": li[name]["ms"],
+        "plain_ms": li[name]["plain_ms"],
+        "bound_ms": li[name]["bound"][0],
+        "bound_by": li[name]["bound"][1],
+        "library_ms": li[name]["library_ms"],
+    } for name, source, replaces, count in (
+        ("rle2_compact", "rle2.cu", "tpubz/block/encode.py:167", li_launches["rle2_compact"]),
+        ("next_pointers", "ibwt.cu", "tpubz/kernels/ibwt.py:32", li_launches["next_pointers"]),
+        ("bwt_inverse", "ibwt.cu", "tpubz/kernels/ibwt.py:47", li_launches["bwt_inverse"]))]}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
     return 0
@@ -970,17 +1035,155 @@ def devrefine_kernels(corpus, edges):
     return result
 
 
-class _PlainCalls:
-    """Counts the calls of the device refine kernels' plain versions while
-    it is entered: each wrapper reaches its plain version through its
-    module, so the counting stand-in sees every call."""
+def lean_ibwt_kernels(padded, n0, edges):
+    """The lean form's kernel (rle2_compact) and the inverse BWT's
+    (next_pointers, bwt_inverse_device) against their plain versions on the
+    card, exactly (every lane of every output). rle2_compact on the MTF
+    ranks of the corpus's first level-9 block, the three edge blocks and
+    the sidecar overflow block (65,282 symbols 256, over HI_CAP), and on
+    random ranks with zero runs up to 70,000 long and all 256 bytes used
+    (EOB 257); the inverse on those blocks' BWT, each also equal to the
+    block itself, on the corpus block's column with 96 pad lanes past a
+    shorter n, and on n = 0, 1 and 2. Then on the corpus block each call's
+    ms and the plain version's (CUDA events), its device µs and launches
+    (torch.profiler, one call), torch.sort(stable=True)'s ms beside the
+    next pointers, and the bounds. Returns per kernel max_abs_err, ms,
+    plain_ms, library_ms, bound."""
+    from tpubz_torch.corpus import sidecar_overflow_block
+    from tpubz_torch.kernels import compact, ibwt, mtf
+    from tpubz_torch.kernels.suffix_sort import bwt_forward
+    from tpubz_torch.stage_probe import kernel_device_us
 
-    def __init__(self):
+    dev, N = padded.device, padded.shape[0]
+    blocks = {"corpus_block0": (padded, n0)}
+    for name, blk in list(edges.items()) + [("sidecar_overflow", sidecar_overflow_block())]:
+        data = torch.zeros(N, dtype=torch.uint8, device=dev)
+        data[: len(blk)] = torch.frombuffer(bytearray(blk), dtype=torch.uint8).to(dev)
+        blocks[name] = (data, len(blk))
+    err = dict.fromkeys(("rle2_compact", "next_pointers", "bwt_inverse"), 0)
+
+    def held(kernel, inputs, got, want):
+        torch.cuda.synchronize()
+        mismatches = sum(int((g.long() != w.long()).sum()) for g, w in zip(got, want))
+        e = max((int((g.long() - w.long()).abs().max()) for g, w in zip(got, want) if g.numel()),
+                default=0)
+        err[kernel] = max(err[kernel], e)
+        _say("kernel", f"{kernel} vs plain inputs={inputs} mismatches={mismatches} "
+                f"max_abs_err={e} tolerance=0")
+        if mismatches or any(g.shape != w.shape for g, w in zip(got, want)):
+            raise AssertionError(f"{kernel} disagrees with its plain version on {inputs}")
+
+    columns = {}
+    for name, (data, n) in blocks.items():
+        key, last = bwt_forward(data, n)
+        ranks, used = mtf.mtf_ranks(last, n)
+        got = compact.rle2_compact(ranks, n, used)
+        hc = int(got[3])
+        held("rle2_compact", f"{name} n={n} hi_count={hc}", got,
+             compact.rle2_compact_ref(ranks, n, used))
+        if name == "sidecar_overflow" and hc <= compact.HI_CAP:
+            raise AssertionError(f"the sidecar overflow block has {hc} symbols 256")
+        columns[name] = (int(key), last, n, data[:n])
+    runs = np.zeros(N, np.int32)
+    rng = np.random.default_rng(SEED + 10)
+    at = int(rng.integers(0, 100))
+    while at < N:
+        runs[at] = rng.integers(1, 256)
+        at += 1 + int(rng.choice([0, 1, 3, 30, 700, 5000, 70_000]))
+    runs[:255] = np.arange(1, 256)  # rank 255 near the start
+    all_used = torch.ones(256, dtype=torch.bool, device=dev)
+    r = torch.from_numpy(runs).to(dev)
+    got = compact.rle2_compact(r, N - 1000, all_used)
+    held("rle2_compact", f"random_zero_runs eob=257 hi_count={int(got[3])}", got,
+         compact.rle2_compact_ref(r, N - 1000, all_used))
+
+    for name, (key, last, n, data) in columns.items():
+        held("next_pointers", f"{name} n={n} N={N}", (ibwt.next_pointers(last, n),),
+             (ibwt.next_pointers_ref(last, n),))
+        out = ibwt.bwt_inverse_device(key, last, n)
+        held("bwt_inverse", f"{name} n={n} key={key}", (out,),
+             (ibwt.bwt_inverse_device_ref(key, last, n),))
+        if not torch.equal(out, data):
+            raise AssertionError(f"bwt_inverse_device did not give {name} back")
+    key, last, n, data = columns["corpus_block0"]
+    short = 800_000  # the column of a shorter block: 100,096 pad lanes
+    skey, slast = bwt_forward(data[:short], short)
+    spad = torch.zeros(N, dtype=torch.uint8, device=dev)
+    spad[:short] = slast
+    held("next_pointers", f"corpus_prefix n={short} N={N}", (ibwt.next_pointers(spad, short),),
+         (ibwt.next_pointers_ref(spad, short),))
+    out = ibwt.bwt_inverse_device(int(skey), spad, short)
+    held("bwt_inverse", f"corpus_prefix n={short} N={N}", (out,),
+         (ibwt.bwt_inverse_device_ref(int(skey), spad, short),))
+    if not torch.equal(out, data[:short]):
+        raise AssertionError("bwt_inverse_device did not give the corpus prefix back")
+    for tiny in (b"", b"x", b"xy"):
+        t = torch.zeros(16, dtype=torch.uint8, device=dev)
+        t[: len(tiny)] = torch.tensor(list(tiny), dtype=torch.uint8, device=dev)
+        tkey, tlast = bwt_forward(t, len(tiny))
+        held("next_pointers", f"n={len(tiny)} N=16", (ibwt.next_pointers(tlast, len(tiny)),),
+             (ibwt.next_pointers_ref(tlast, len(tiny)),))
+        out = ibwt.bwt_inverse_device(int(tkey), tlast, len(tiny))
+        if bytes(out.cpu().numpy()) != tiny:
+            raise AssertionError(f"bwt_inverse_device did not give {tiny!r} back")
+
+    ranks, used = mtf.mtf_ranks(last, n)
+    OUT = N + 8
+    idx = torch.arange(N, device=dev)
+    sym = torch.where(idx < n, last.to(torch.int32), 256)
+    rounds = ibwt.rounds_for(n)
+    timed = {
+        # ranks and the used map in; symbols, bytes, length, slots, count out
+        "rle2_compact": (lambda: compact.rle2_compact(ranks, n, used),
+                         lambda: compact.rle2_compact_ref(ranks, n, used), None,
+                         _bound(4 * N + 256 + 4 * OUT + OUT + 8 + 4 * compact.HI_CAP + 4, N)),
+        # the column in, the pointers out; one operation a position
+        "next_pointers": (lambda: ibwt.next_pointers(last, n),
+                          lambda: ibwt.next_pointers_ref(last, n),
+                          lambda: torch.sort(sym, stable=True).indices,
+                          _bound(n + 4 * N, N)),
+        # the column and the key in, the block out; one gather a byte
+        "bwt_inverse": (lambda: ibwt.bwt_inverse_device(key, last, n),
+                        lambda: ibwt.bwt_inverse_device_ref(key, last, n), None,
+                        _bound(n + 8 + n, n)),
+    }
+    result = {}
+    for name, (run, plain, library, bound) in timed.items():
+        ms, plain_ms = _cuda_ms(run, 20), _cuda_ms(plain, 3)
+        library_ms = _cuda_ms(library, 20) if library else None
+        prof = kernel_device_us(run)
+        result[name] = {"max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
+                        "library_ms": library_ms, "bound": bound, "device_us": prof["sum_us"]}
+        extra = ""
+        if name == "bwt_inverse":
+            # this formulation's HBM bytes: the next pointers (the keys
+            # written, two passes' reads and writes, the pointers written),
+            # then per round the pointer array read, gathered and written
+            # and the positions extended, as if none of it stayed in the L2
+            form = _bound(n + 8 * n + 32 * n + 4 * N + rounds * 12 * n + 5 * n, rounds * n)
+            extra = (f"rounds={rounds} this_formulation_hbm_bound_us={form[0] * 1e3} "
+                     f"(its 3.6 MB pointer arrays fit in the 50 MB L2) ")
+        _say("kernel", f"{name} N={N} n={n} kernel_ms={ms} plain_ms={plain_ms} "
+                + (f"torch_sort_stable_ms={library_ms} " if library else "")
+                + f"device_us={prof['sum_us']} device_launches={prof['launches']} "
+                f"bound_us={bound[0] * 1e3} bound_by={bound[1]} {extra}(CUDA events; device "
+                f"time from torch.profiler, one call; inputs=corpus_block0)")
+    return result
+
+
+class _PlainCalls:
+    """Counts the calls of the named plain versions while it is entered
+    (by default the device refine kernels'): each wrapper reaches its plain
+    version through its module, so the counting stand-in sees every call."""
+
+    def __init__(self, targets=None):
         from tpubz_torch.kernels import bitpack, huffman_dev
 
-        self.targets = [(huffman_dev, n) for n in ("chunk_hist_ref", "chunk_hist_batch_ref",
-                                                   "refine_pass_ref", "pack_payload_ref")]
-        self.targets.append((bitpack, "pack_bits_device_ref"))
+        if targets is None:
+            targets = [(huffman_dev, n) for n in ("chunk_hist_ref", "chunk_hist_batch_ref",
+                                                  "refine_pass_ref", "pack_payload_ref")]
+            targets.append((bitpack, "pack_bits_device_ref"))
+        self.targets = targets
         self.calls = {n: 0 for _, n in self.targets}
 
     def __enter__(self):
@@ -995,6 +1198,153 @@ class _PlainCalls:
     def __exit__(self, *exc):
         for (mod, n), fn in zip(self.targets, self.saved):
             setattr(mod, n, fn)
+
+
+def _level_blocks(data):
+    """The level-9 RLE1 blocks of data with their CRCs, as compress cuts
+    them: [(block uint8[n], crc)]."""
+    from tpubz_torch.format.constants import block_budget
+    from tpubz_torch.format.crc import block_crc
+    from tpubz_torch.hostref.rle1 import rle1_blocks
+
+    arr = np.frombuffer(data, np.uint8)
+    out, cuts = rle1_blocks(arr, block_budget(LEVEL))
+    return [(out[o0:o1], block_crc(arr[i0:i1])) for o0, o1, i0, i1 in cuts]
+
+
+def _splice(blocks, accs):
+    """The stream of the blocks' packed bits: the header, the blocks, the
+    footer with the folded CRC, as stream/api.py's _compress_impl splices
+    them."""
+    from tpubz_torch.format.constants import FOOTER_MAGIC, STREAM_MAGIC
+    from tpubz_torch.format.crc import stream_crc_fold
+    from tpubz_torch.hostref.bitio import BitAccum, IncrementalSplicer
+
+    header = BitAccum()
+    for b in STREAM_MAGIC:
+        header.put(b, 8)
+    header.put(0x30 + LEVEL, 8)
+    splicer = IncrementalSplicer(cap_hint=sum(blk.size for blk, _ in blocks) // 2 + 64)
+    splicer.add(*header.pack())
+    s_crc = 0
+    for (_, crc), acc in zip(blocks, accs):
+        s_crc = stream_crc_fold(s_crc, crc)
+        splicer.add(*acc.pack())
+    footer = BitAccum()
+    footer.put(FOOTER_MAGIC, 48)
+    footer.put(s_crc, 32)
+    splicer.add(*footer.pack())
+    return splicer.finish()[0]
+
+
+def lean(tpubz_torch, data, stream):
+    """The lean chain on [path]'s blocks and the sidecar overflow block, its
+    counts read from zero: each block's fetch of transform(blk, lean=True)
+    must equal the fetch of the int16 form field by field (the overflow
+    block takes the full-row fetch: its symbols 256 exceed HI_CAP); then
+    encode_block, which takes the lean chain, on [path]'s blocks, spliced,
+    must equal [path]'s stream and round-trip through tpubz_torch.decompress
+    and bunzip2. rle2_compact must have launched once a lean transform and
+    no plain version run. Host ms a block of each form's fetch (the
+    transform drained first). Returns the launches."""
+    from tpubz_torch.block.encode import DeviceBlockEncoder
+    from tpubz_torch.corpus import sidecar_overflow_block
+    from tpubz_torch.kernels import compact
+
+    blocks = _level_blocks(data)
+    overflow = np.frombuffer(sidecar_overflow_block(), np.uint8)
+    enc = DeviceBlockEncoder(LEVEL)
+    compact.LEAN_LAUNCHES = 0
+    torch.cuda.synchronize()
+    fetch_ms = {"int16": [], "lean": []}
+    with _PlainCalls([(compact, "rle2_compact_ref")]) as plain:
+        for blk in [b for b, _ in blocks] + [overflow]:
+            got = {}
+            for form, is_lean in (("int16", False), ("lean", True)):
+                out = enc.transform(blk, lean=is_lean)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                got[form] = enc.fetch(out)
+                fetch_ms[form].append((time.perf_counter() - t1) * 1e3)
+            a, b = got["int16"], got["lean"]
+            same = (a[0] == b[0] and a[2] == b[2] and np.array_equal(a[1], b[1])
+                    and a[1].dtype == b[1].dtype and np.array_equal(a[3], b[3])
+                    and np.array_equal(a[4], b[4]))
+            if not same:
+                raise AssertionError(f"the lean fetch of a {blk.size}-byte block differs from "
+                                     f"the int16 fetch")
+        transforms = compact.LEAN_LAUNCHES
+        t0 = time.perf_counter()
+        got = _splice(blocks, [enc.encode_block(blk, crc) for blk, crc in blocks])
+        encode_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+    n = len(blocks)
+    if got != stream:
+        raise AssertionError("the stream of lean encode_block differs from [path]'s")
+    if tpubz_torch.decompress(got) != data:
+        raise AssertionError("tpubz_torch.decompress round trip of the lean stream failed")
+    ran = ["tpubz_torch.decompress"] + ["bunzip2"] * _bunzip2_ok(got, data)
+    if transforms != n + 1 or compact.LEAN_LAUNCHES != 2 * n + 1 or any(plain.calls.values()):
+        raise AssertionError(f"rle2_compact launches {transforms} and {compact.LEAN_LAUNCHES} "
+                             f"for {n} + 1 blocks, plain calls {plain.calls}")
+    med = {k: float(np.median(v[:n])) for k, v in fetch_ms.items()}
+    _say("lean", f"blocks={n}+sidecar_overflow fetch_lean==fetch_int16 stream==path_stream "
+         f"round_trips={'+'.join(ran)} rle2_compact_launches={compact.LEAN_LAUNCHES} "
+         f"plain_calls={plain.calls} fetch_host_ms_per_block_median={med} "
+         f"fetch_host_ms_overflow_block={{'int16': {fetch_ms['int16'][-1]}, "
+         f"'lean': {fetch_ms['lean'][-1]}}} encode_block_seconds={encode_s} (host clock; "
+         f"fetch from the drained transform to the host tuple; encode_block one block at a "
+         f"time on this thread)")
+    return {"rle2_compact": compact.LEAN_LAUNCHES}
+
+
+def inverse(tpubz_torch, data, stream):
+    """The inverse BWT on the card on [path]'s blocks, its counts read from
+    zero: each block's (key, last column) from transform_bwt, then
+    bwt_inverse_device, which must give the RLE1 block back; every call
+    must have run the next pointers and ceil(log2 n) doubling rounds and no
+    plain version. Its ms a block (CUDA events around the call) beside
+    tpubz_torch.decompress's ms a block on [path]'s stream (host clock).
+    Returns the launches."""
+    from tpubz_torch.block.encode import DeviceBlockEncoder
+    from tpubz_torch.kernels import ibwt
+
+    blocks = _level_blocks(data)
+    enc = DeviceBlockEncoder(LEVEL)
+    ibwt.NEXT_LAUNCHES = ibwt.INVERSE_LAUNCHES = ibwt.ROUNDS_RUN = 0
+    torch.cuda.synchronize()
+    ms, want_rounds = [], 0
+    with _PlainCalls([(ibwt, "next_pointers_ref"), (ibwt, "bwt_inverse_device_ref")]) as plain:
+        for blk, _ in blocks:
+            key, last, n = enc.transform_bwt(blk)
+            key = int(key)
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = ibwt.bwt_inverse_device(key, last, n)
+            stop.record()
+            stop.synchronize()
+            ms.append(start.elapsed_time(stop))
+            want_rounds += ibwt.rounds_for(n)
+            if not np.array_equal(out.cpu().numpy(), blk):
+                raise AssertionError(f"bwt_inverse_device did not give a {n}-byte block back")
+    launches = {"next_pointers": ibwt.NEXT_LAUNCHES, "bwt_inverse": ibwt.INVERSE_LAUNCHES}
+    nb = len(blocks)
+    if (launches["next_pointers"] != nb or launches["bwt_inverse"] != nb
+            or ibwt.ROUNDS_RUN != want_rounds or any(plain.calls.values())):
+        raise AssertionError(f"inverse launches {launches}, {ibwt.ROUNDS_RUN} rounds (want "
+                             f"{want_rounds}) for {nb} blocks, plain calls {plain.calls}")
+    t0 = time.perf_counter()
+    if tpubz_torch.decompress(stream) != data:
+        raise AssertionError("tpubz_torch.decompress failed")
+    dec_ms = (time.perf_counter() - t0) * 1e3 / nb
+    _say("ibwt", f"blocks={nb} inverse==rle1_block launches={launches} "
+         f"rounds={ibwt.ROUNDS_RUN} plain_calls={plain.calls} "
+         f"inverse_ms_per_block_median={float(np.median(ms))} "
+         f"inverse_ms_per_block_range=[{min(ms)},{max(ms)}] "
+         f"decompress_ms_per_block={dec_ms} (inverse: CUDA events around the call, host launch "
+         f"included; decompress: host clock, the whole stream over its blocks)")
+    return launches
 
 
 def devrefine(tpubz_torch, data, stream):
@@ -1014,33 +1364,13 @@ def devrefine(tpubz_torch, data, stream):
     kernel name."""
     from tpubz_torch.block.encode import DeviceBlockEncoder
     from tpubz_torch.dist.sharded import make_sharded_transform
-    from tpubz_torch.format.constants import FOOTER_MAGIC, STREAM_MAGIC, block_budget
-    from tpubz_torch.format.crc import block_crc, stream_crc_fold
-    from tpubz_torch.hostref.bitio import BitAccum, IncrementalSplicer
-    from tpubz_torch.hostref.rle1 import rle1_blocks
     from tpubz_torch.kernels import bitpack, huffman_dev as H
 
-    arr = np.frombuffer(data, np.uint8)
-    out, cuts = rle1_blocks(arr, block_budget(LEVEL))
-    blocks = [(out[o0:o1], block_crc(arr[i0:i1])) for o0, o1, i0, i1 in cuts]
+    blocks = _level_blocks(data)
     enc = DeviceBlockEncoder(LEVEL)
 
     def splice(accs):
-        header = BitAccum()
-        for b in STREAM_MAGIC:
-            header.put(b, 8)
-        header.put(0x30 + LEVEL, 8)
-        splicer = IncrementalSplicer(cap_hint=arr.size // 2 + 64)
-        splicer.add(*header.pack())
-        s_crc = 0
-        for (_, crc), acc in zip(blocks, accs):
-            s_crc = stream_crc_fold(s_crc, crc)
-            splicer.add(*acc.pack())
-        footer = BitAccum()
-        footer.put(FOOTER_MAGIC, 48)
-        footer.put(s_crc, 32)
-        splicer.add(*footer.pack())
-        return splicer.finish()[0]
+        return _splice(blocks, accs)
 
     H.HIST_LAUNCHES = H.HIST_BATCH_LAUNCHES = H.REFINE_LAUNCHES = H.PAYLOAD_LAUNCHES = 0
     bitpack.LAUNCHES = 0

@@ -18,7 +18,7 @@ from tpubz.stream.api import compress_cpu
 
 import tpubz_torch
 from tpubz_torch.block.encode import DeviceBlockEncoder
-from tpubz_torch.corpus import edge_blocks, mixed_corpus
+from tpubz_torch.corpus import edge_blocks, mixed_corpus, sidecar_overflow_block
 from tpubz_torch.kernels import mtf, rle2
 from tpubz_torch.kernels.suffix_sort import bwt_forward
 
@@ -815,3 +815,134 @@ def test_devrefine_wrappers_reject_what_the_kernels_do_not_take(cuda):
         H.chunk_hist_batch(syms.view(1, -1), torch.tensor([1, 2], device=cuda))
     with pytest.raises(TypeError):
         bitpack.pack_bits_device(syms.to(torch.int64), syms.to(torch.int64), 10)
+
+
+_LEAN_SOURCES = {
+    "corpus_block0": lambda: mixed_corpus(1, 2026)[:900_000],
+    "near_periodic": lambda: edge_blocks()["near_periodic"],
+    "one_byte_run": lambda: edge_blocks()["one_byte_run"],
+    "all256": lambda: edge_blocks()["all256"],
+    "overflow": sidecar_overflow_block,
+}
+
+
+@pytest.mark.parametrize("name", list(_LEAN_SOURCES))
+def test_rle2_compact_on_card_matches_plain_level9(cuda, name):
+    """rle2_compact on the card equals its plain version on a level-9
+    block's MTF ranks, every output whole (the overflow block's count past
+    HI_CAP, all256's EOB 257), and counts one launch; the lean fetch equals
+    the int16 fetch of the same block field by field."""
+    from tpubz_torch.kernels import compact
+
+    enc = DeviceBlockEncoder(9)
+    blk = np.frombuffer(_LEAN_SOURCES[name](), np.uint8)
+    last = enc.transform_bwt(blk)[1]
+    ranks, used = mtf.mtf_ranks(last, blk.size)
+    before = compact.LEAN_LAUNCHES
+    got = compact.rle2_compact(ranks, blk.size, used)
+    torch.cuda.synchronize()
+    assert compact.LEAN_LAUNCHES == before + 1
+    for g, w in zip(got, compact.rle2_compact_ref(ranks, blk.size, used)):
+        assert g.dtype == w.dtype and g.shape == w.shape and torch.equal(g, w)
+    if name == "overflow":
+        assert int(got[3]) > compact.HI_CAP
+    a, b = enc.fetch(enc.transform(blk)), enc.fetch(enc.transform(blk, lean=True))
+    assert a[0] == b[0] and a[2] == b[2] and a[1].dtype == b[1].dtype
+    assert all(np.array_equal(x, y) for x, y in zip((a[1], a[3], a[4]), (b[1], b[3], b[4])))
+
+
+def test_rle2_compact_on_card_random_runs(cuda):
+    """rle2_compact on random ranks with zero runs up to 70,000 long, rank
+    255 and all 256 bytes used (EOB 257), at odd lengths, equals its plain
+    version."""
+    from tpubz_torch.kernels import compact
+
+    rng = np.random.default_rng(10)
+    for N, n in ((900_096, 899_999), (4096, 4096), (8192, 1), (8192, 0)):
+        r = np.zeros(N, np.int32)
+        at = int(rng.integers(0, 50))
+        while at < N:
+            r[at] = rng.integers(1, 256)
+            at += 1 + int(rng.choice([0, 1, 3, 30, 700, 5000, 70_000]))
+        r[: min(N, 300): 2] = 255
+        ranks = torch.from_numpy(r).to(cuda)
+        used = torch.ones(256, dtype=torch.bool, device=cuda)
+        for g, w in zip(compact.rle2_compact(ranks, n, used),
+                        compact.rle2_compact_ref(ranks, n, used)):
+            assert torch.equal(g, w), (N, n)
+
+
+def test_encode_block_lean_on_card_matches_native(cuda, tpubz_native):
+    """encode_block (the lean chain) on the card gives the bits of the
+    block as tpubz's native engine transforms it, for level-9 blocks, the
+    overflow block included."""
+    enc = DeviceBlockEncoder(9)
+    for name in ("corpus_block0", "all256", "overflow"):
+        blk = np.frombuffer(_LEAN_SOURCES[name](), np.uint8)
+        key, syms, freqs, used = tpubz_native.block_transform_native(blk)
+        want = enc.emit_block(int(key), syms, syms.size, freqs.astype(np.int64), used, 0x1234)
+        assert enc.encode_block(blk, 0x1234).pack() == want.pack(), name
+
+
+@pytest.mark.parametrize("name", ["corpus_block0", "near_periodic", "one_byte_run", "all256"])
+def test_ibwt_kernels_on_card_level9(cuda, name):
+    """next_pointers and bwt_inverse_device on the card equal their plain
+    versions on a level-9 block's BWT, and the inverse gives the block
+    back; each call counts its launches and its ceil(log2 n) rounds."""
+    from tpubz_torch.kernels import ibwt
+
+    last, n = _level9_last(name, cuda)
+    blk = mixed_corpus(1, 2026)[:900_000] if name == "corpus_block0" else edge_blocks()[name]
+    data = torch.zeros(900_096, dtype=torch.uint8, device=cuda)
+    data[:n] = torch.frombuffer(bytearray(blk), dtype=torch.uint8).to(cuda)
+    key = int(bwt_forward(data, n)[0])
+    before = (ibwt.NEXT_LAUNCHES, ibwt.INVERSE_LAUNCHES, ibwt.ROUNDS_RUN)
+    nxt = ibwt.next_pointers(last, n)
+    out = ibwt.bwt_inverse_device(key, last, n)
+    torch.cuda.synchronize()
+    assert (ibwt.NEXT_LAUNCHES, ibwt.INVERSE_LAUNCHES, ibwt.ROUNDS_RUN) == (
+        before[0] + 2, before[1] + 1, before[2] + ibwt.rounds_for(n))
+    assert torch.equal(nxt, ibwt.next_pointers_ref(last, n))
+    assert bytes(out.cpu().numpy()) == blk
+    assert torch.equal(out, ibwt.bwt_inverse_device_ref(key, last, n))
+
+
+@pytest.mark.parametrize("n", [0, 1, 2, 3, 4095, 4096, 4097, 100_000])
+def test_ibwt_kernels_on_card_small(cuda, n):
+    """The inverse kernels at small and tile-edge lengths with pad lanes
+    past n (N = n + 100): pointers equal to the plain version and the
+    block given back; the calls count their kernels only for n > 0, where
+    the key and sort kernels run."""
+    from tpubz_torch.kernels import ibwt
+
+    rng = np.random.default_rng(n)
+    blk = rng.integers(0, 3, n, dtype=np.uint8).tobytes()
+    data = torch.zeros(n + 100, dtype=torch.uint8, device=cuda)
+    if n:
+        data[:n] = torch.frombuffer(bytearray(blk), dtype=torch.uint8).to(cuda)
+    key, last = bwt_forward(data, n)
+    before = (ibwt.NEXT_LAUNCHES, ibwt.INVERSE_LAUNCHES)
+    assert torch.equal(ibwt.next_pointers(last, n), ibwt.next_pointers_ref(last, n))
+    assert bytes(ibwt.bwt_inverse_device(int(key), last, n).cpu().numpy()) == blk
+    ran = int(n > 0)
+    assert (ibwt.NEXT_LAUNCHES, ibwt.INVERSE_LAUNCHES) == (before[0] + 2 * ran, before[1] + ran)
+
+
+def test_lean_and_ibwt_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    from tpubz_torch.kernels import compact, ibwt
+
+    ranks = torch.zeros(4096, dtype=torch.int32, device=cuda)
+    used = torch.zeros(256, dtype=torch.bool, device=cuda)
+    with pytest.raises(TypeError):
+        compact.rle2_compact(ranks, 10, used.int())
+    with pytest.raises(TypeError):
+        compact.rle2_compact(ranks.long(), 10, used)
+    with pytest.raises(ValueError):
+        compact.rle2_compact(ranks, 5000, used)
+    last = torch.zeros(100, dtype=torch.uint8, device=cuda)
+    with pytest.raises(TypeError):
+        ibwt.next_pointers(last.int(), 10)
+    with pytest.raises(ValueError):
+        ibwt.bwt_inverse_device(10, last, 10)
+    with pytest.raises(ValueError):
+        ibwt.next_pointers(torch.zeros((1 << 20) + 1, dtype=torch.uint8, device=cuda), (1 << 20) + 1)

@@ -67,8 +67,20 @@ SIGNATURES = {
     # syms, rle2_len, freqs, stream
     "tpubz_rle2_batch": [_P, _P, ctypes.c_int, ctypes.c_int, _P, _P, ctypes.c_int, _P, _P, _P,
                          _P],
+    # ranks, n, N, used, scratch, nb, syms, rle2_len, u8, hi_pos, hi_count, stream
+    "tpubz_rle2_compact": [_P, ctypes.c_int, ctypes.c_int, _P, _P, ctypes.c_int, _P, _P, _P, _P,
+                           _P, _P],
     # syms, rle2_len, B, OUT, scratch, syms_u8, hi_packed, hi_count, stream
     "tpubz_stage_compact": [_P, _P, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P],
+    # n, N, sizes (out, 2 long longs: the next pointers' scratch bytes, the
+    # inverse's)
+    "tpubz_ibwt_sizes": [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)],
+    # last, n, N, scratch, its bytes, nxt, launched (out), stream
+    "tpubz_next_pointers": [_P, ctypes.c_int, ctypes.c_int, _P, ctypes.c_longlong, _P, _INTS, _P],
+    # last, key, n, N, scratch, its bytes, out, launched (out), rounds (out),
+    # stream
+    "tpubz_bwt_inverse": [_P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, ctypes.c_longlong, _P,
+                          _INTS, _INTS, _P],
     # keys, out, n, lo bit, hi bit, scratch, its bytes, launched (out), stream
     "tpubz_radix_sort": [_P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, ctypes.c_int,
                          _INTS, _P],

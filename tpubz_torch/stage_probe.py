@@ -1,7 +1,7 @@
 """Where a level-9 stream's time goes on the card, route by route.
 
     python3 -m tpubz_torch.stage_probe [--mib 16] [--seed 2026] [--out FILE]
-                                       [--mode all|bwt_anatomy|devrefine]
+                                       [--mode all|bwt_anatomy|devrefine|lean]
                                        [--parent DIR [--reps 1]]
 
 Needs a CUDA card: without one it exits with code 1. The functions take a
@@ -54,6 +54,14 @@ mixed corpus plus the edge blocks (``tpubz_torch.corpus``, as
   the refinement passes, and the functions with the most own time over
   all blocks under ``cProfile`` (which slows every Python call it sees:
   read the shares, not the sums);
+- ``lean`` (also alone with ``--mode lean``): the full stage's two
+  transfer forms (int16, its own, and the lean chain): device-only ``full`` streams of
+  each in turns (int16, lean, lean, int16, ``--reps`` times, at least
+  twice) with their MB/s and medians; and per block of the data, host ms
+  of each form's fetch (the enqueue of the copies, the wait and the host's
+  part: the lean form's count and patches) and, for the lean form, of the
+  whole byte stream copied behind one event against the scalars first and
+  then only the ``rle2_len`` bytes the stream fills;
 - ``turns``: with ``--parent``, from a fresh process of the parent's tree
   and of this one in the order parent, this, this, parent (``--reps``
   times): ``bwt_forward``, ``mtf_ranks`` and ``rle2_encode`` ms on the
@@ -384,9 +392,9 @@ def stream_spans(data: bytes, level: int, stage: str, device="cuda") -> dict:
              for name in ("transform", "transform_bwt", "fetch_async", "fetch_bwt_async")}
 
     def opening(fn):
-        def wrap(self, *args):
+        def wrap(self, *args, **kwargs):
             spans.append([mark(), None])
-            return fn(self, *args)
+            return fn(self, *args, **kwargs)
         return wrap
 
     def closing(fn):
@@ -574,6 +582,67 @@ def turns(parent: str, reps: int, mib: int, seed: int) -> list[dict]:
     return out
 
 
+def lean_turns(data: bytes, level: int, device, reps: int = 2) -> dict:
+    """MB/s of device-only full-stage streams with the int16 and the lean
+    transfer form, in turns (int16, lean, lean, int16), ``reps`` times
+    after one warm-up stream of each. The full stage fetches the int16
+    form; a lean turn wraps ``DeviceBlockEncoder.transform`` to take the
+    lean chain, which ``fetch_async`` reads off the transform's result."""
+    plain = DeviceBlockEncoder.transform
+
+    def lean_transform(self, blk, lean=False):
+        return plain(self, blk, lean=True)
+
+    def run(lean):
+        DeviceBlockEncoder.transform = lean_transform if lean else plain
+        return _rate(data, lambda: api.compress(data, level, device=device), device)
+
+    rates: dict = {"int16": [], "lean": []}
+    try:
+        with env(**DEVICE_ONLY["full"]):
+            for lean in (False, True):
+                run(lean)
+            for _ in range(reps):
+                for lean in (False, True, True, False):
+                    rates["lean" if lean else "int16"].append(run(lean)["MBps"])
+    finally:
+        DeviceBlockEncoder.transform = plain
+    return {"MBps": rates, "median_MBps": {k: statistics.median(v) for k, v in rates.items()},
+            "order": "int16, lean, lean, int16", "reps": reps}
+
+
+def lean_fetch_costs(data: bytes, level: int, device) -> dict:
+    """Per block, host ms of ``fetch`` of each form (the transform done and
+    drained first), and of the lean form's byte stream fetched whole behind
+    one event against the scalars first, then the rle2_len prefix alone."""
+    from .block.encode import host_copies
+
+    def waited(*tensors):
+        host, event = host_copies(torch.device(device), *tensors)
+        if event is not None:
+            event.synchronize()
+        return host
+
+    enc = DeviceBlockEncoder(level, device)
+    rows = []
+    for blk, _ in _blocks(data, level):
+        row = {}
+        for name, lean in (("int16", False), ("lean", True)):
+            out, _ = _timed(lambda: enc.transform(blk, lean=lean), device)
+            _, row[f"fetch_{name}"] = _timed(lambda: enc.fetch(out), device)
+        _, _, rl_d, _, u8, hi_pos, hc = out
+        small = torch.stack((rl_d.to(torch.int64), hc.to(torch.int64)))
+        _, row["whole_stream"] = _timed(lambda: waited(small, u8, hi_pos), device)
+
+        def prefix():
+            (h_small, _) = waited(small, hi_pos)
+            return waited(u8[: int(h_small[0])])
+
+        _, row["prefix_after_scalars"] = _timed(prefix, device)
+        rows.append(row)
+    return _summary(rows)
+
+
 def devrefine_anatomy(data: bytes, level: int, device, top: int = 20) -> dict:
     """Host time of encode_block_devrefine per block of ``data`` (the
     transform done and drained first), and a cProfile of the same calls."""
@@ -612,7 +681,8 @@ def main(argv=None) -> int:
     ap.add_argument("--mib", type=int, default=16)
     ap.add_argument("--seed", type=int, default=2026)
     ap.add_argument("--out")
-    ap.add_argument("--mode", choices=("all", "bwt_anatomy", "devrefine"), default="all")
+    ap.add_argument("--mode", choices=("all", "bwt_anatomy", "devrefine", "lean"),
+                    default="all")
     ap.add_argument("--parent")
     ap.add_argument("--reps", type=int, default=1)
     args = ap.parse_args(argv)
@@ -636,9 +706,12 @@ def main(argv=None) -> int:
 
         rigprofile.reset_memo()
         result["bytes"] = len(data)
-        if args.mode != "bwt_anatomy":
+        if args.mode in ("all", "lean"):
+            result["lean"] = {"turns": lean_turns(data, 9, "cuda", max(args.reps, 2)),
+                              "fetch": lean_fetch_costs(data, 9, "cuda")}
+        if args.mode in ("all", "devrefine"):
             result["devrefine"] = devrefine_anatomy(data, 9, "cuda")
-        if args.mode != "devrefine":
+        if args.mode in ("all", "bwt_anatomy"):
             result["bwt_anatomy"] = bwt_anatomy(data)
         if args.mode == "all":
             result.update({

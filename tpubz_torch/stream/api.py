@@ -18,7 +18,8 @@ Routing, as in tpubz:
     overdue device head twinned onto a free CPU worker (first result wins
     the ordered drain: the bytes are the same);
   - the device runs one of two stages: ``"full"`` (BWT, MTF, RLE2 on the
-    device; refinement and emission on the host) or ``"bwt"`` (the suffix
+    device, fetched as int16 symbols with the device's frequencies;
+    refinement and emission on the host) or ``"bwt"`` (the suffix
     sort on the device; MTF/RLE2 in the native ``mtf_rle2_native`` on the
     fetched last column). ``"auto"`` picks by ``rigprofile.choose_stage``
     from the port's own measured profile, ``"bwt"`` until both stages have
@@ -373,6 +374,11 @@ def _device_block_results(enc: DeviceBlockEncoder, items, settings: dict):
         """Dispatcher thread: transforms and the enqueue of the copies."""
         if stage == "bwt":
             return enc.fetch_bwt_async(enc.transform_bwt(blk))
+        # the int16 form, not tpubz's lean one: in 8 alternating device-only
+        # streams of each on an H100 (700 W, 8-core host) int16 gave a median
+        # of 185 MB/s against lean's 171, the lean fetch's host count costing
+        # more (1.1 against 0.26 ms a block) than the halved copy saves
+        # (PERF.md section 6; stage_probe --mode lean)
         return enc.fetch_async(enc.transform(blk))
 
     def emit(fetch_fut, raw):
