@@ -9,7 +9,9 @@ CUDA kernels (tpubz_torch/csrc, nvcc) into tpubz_torch/_build, holds each
 kernel against its plain
 PyTorch version at the level-9 shapes (tolerance 0: the codec is integer;
 MTF and RLE2 on the corpus's first block and the three edge blocks, RLE2
-also on random ranks with long zero runs; the BWT's library call, key and
+also on random ranks with long zero runs, with the EOB as a device scalar
+and from the used map, and 20 repeats of each RLE2 form identical, since
+its tiles race through a look-back; the BWT's library call, key and
 every lane of the last column, on the same four blocks; the radix sort
 under it on random 60-bit keys and on the keys of the corpus block's first
 two doubling rounds),
@@ -72,8 +74,9 @@ the plain version's and the one-call PyTorch equivalent's where one exists
 of the bytes it must move over 3.35 TB/s and its integer operations over
 the int32 rate of the card's CUDA cores (132 SMs x 64 lanes x 1.98 GHz,
 16.7 T/s; the data sheet's 67 TFLOP/s is the float32 rate: twice the
-lanes, and an FMA counted as two). The MTF and RLE2 launches are calls of their wrappers (three
-kernels each); the BWT's are calls of its wrapper (one library call a
+lanes, and an FMA counted as two). The MTF and RLE2 launches are calls of
+their wrappers (MTF three kernels, RLE2 a memset and one kernel, as its
+wrapper reports them); the BWT's are calls of its wrapper (one library call a
 block: per doubling round the keys with their histogram, the radix passes
 and the re-rank, then the last column); the radix sort's are the sorts run
 on the card, which on the main path are the BWT call's, one a round. The
@@ -544,13 +547,18 @@ def _smoke(tmp):
 def chain_kernels(padded, n0, edges, rng):
     """The MTF and RLE2 kernels against their plain versions on the card,
     exactly (every lane, the used map, every symbol slot, the length and the
-    frequencies; the EOB a device scalar): on the BWT of the corpus's first
-    block and of each edge block, and RLE2 also on random ranks with zero
-    runs up to 70,000 long. Then their ms and the plain versions' on the
-    corpus block, and the bounds. Returns per kernel max_abs_err, ms,
-    plain_ms and bound."""
+    frequencies; the EOB a device scalar, and from the used map as the
+    transform takes it): on the BWT of the corpus's first block and of each
+    edge block, and RLE2 also on random ranks with zero runs up to 70,000
+    long. RLE2's look-back is then run 20 times on the corpus block and the
+    random ranks, every output identical. Then their ms and the plain
+    versions' on the corpus block (RLE2 as the transform calls it), device
+    µs and launches from torch.profiler, the launches each wrapper reports,
+    and the bounds. Returns per kernel max_abs_err, ms, plain_ms and
+    bound."""
     from tpubz_torch.kernels import mtf, rle2
     from tpubz_torch.kernels.suffix_sort import bwt_forward
+    from tpubz_torch.stage_probe import kernel_device_us
 
     dev, N = padded.device, padded.shape[0]
     blocks = {"corpus_block0": bwt_forward(padded, n0)[1]}
@@ -563,7 +571,7 @@ def chain_kernels(padded, n0, edges, rng):
 
     def held(kernel, inputs, got, ref):
         torch.cuda.synchronize()
-        mismatches = sum(int((g != r).sum()) for g, r in zip(got, ref))
+        mismatches = sum(int((g.long() != r.long()).sum()) for g, r in zip(got, ref))
         e = max(int((g.long() - r.long()).abs().max()) for g, r in zip(got, ref))
         err[kernel] = max(err[kernel], e)
         _say("kernel", f"{kernel} vs plain inputs={inputs} N={N} mismatches={mismatches} "
@@ -576,44 +584,75 @@ def chain_kernels(padded, n0, edges, rng):
         n = lengths[name]
         got = mtf.mtf_ranks(last, n)
         held("mtf", name, got, mtf.mtf_ranks_ref(last, n))
-        ranks[name] = (got[0], n, got[1].sum() + 1)
+        ranks[name] = (got[0], n, got[1])
     runs = np.zeros(N, np.int32)
     at = int(rng.integers(0, 100))
     while at < N:
         runs[at] = rng.integers(1, 256)
         at += 1 + int(rng.choice([0, 1, 3, 30, 700, 5000, 70_000]))
-    ranks["random_zero_runs"] = (torch.from_numpy(runs).to(dev), N - 1000,
-                                 torch.tensor(201, device=dev))
-    for name, (r, n, eob) in ranks.items():
-        held("rle2", name, rle2.rle2_encode(r, n, eob), rle2.rle2_encode_ref(r, n, eob))
+    used_200 = torch.arange(256, device=dev) < 200  # EOB 201
+    ranks["random_zero_runs"] = (torch.from_numpy(runs).to(dev), N - 1000, used_200)
+    for name, (r, n, used) in ranks.items():
+        eob = used.sum() + 1
+        want = rle2.rle2_encode_ref(r, n, eob)
+        held("rle2", f"{name} eob=device_scalar", rle2.rle2_encode(r, n, eob), want)
+        held("rle2", f"{name} eob=used_map", rle2.rle2_encode_used(r, n, used), want)
+    # the look-back's races: 20 calls on the same ranks, every output equal
+    for name in ("corpus_block0", "random_zero_runs"):
+        r, n, used = ranks[name]
+        first = [t.clone() for t in rle2.rle2_encode_used(r, n, used)]
+        differing = 0
+        for _ in range(19):
+            again = rle2.rle2_encode_used(r, n, used)
+            differing += sum(int((a.long() != b.long()).sum()) for a, b in zip(first, again))
+        torch.cuda.synchronize()
+        _say("kernel", f"rle2 repeats inputs={name} calls=20 differing_slots={differing}")
+        if differing:
+            raise AssertionError(f"rle2_encode_used gave different outputs on {name}")
 
-    last, (r, n, eob) = blocks["corpus_block0"], ranks["corpus_block0"]
+    last, (r, n, used) = blocks["corpus_block0"], ranks["corpus_block0"]
+    eob = used.sum() + 1
     nc = N // mtf.CHUNK
     out = {
         # bytes in, ranks and the used map out; no operation count is
         # needed beyond one per position
         "mtf": (lambda: mtf.mtf_ranks(last, n0), lambda: mtf.mtf_ranks_ref(last, n0),
                 _bound(N + 4 * N + 256, N)),
-        # ranks in, symbols, length and frequencies out
-        "rle2": (lambda: rle2.rle2_encode(r, n, eob), lambda: rle2.rle2_encode_ref(r, n, eob),
-                 _bound(4 * N + 4 * (N + 8) + 8 + 8 * 258, N)),
+        # ranks and the used map in; uint16 symbols, length and frequencies out
+        "rle2": (lambda: rle2.rle2_encode_used(r, n, used), lambda: rle2.rle2_encode_ref(r, n, eob),
+                 _bound(4 * N + 256 + 2 * (N + 8) + 8 + 8 * 258, N)),
     }
     result = {}
     for name, (run, plain, bound) in out.items():
         module = mtf if name == "mtf" else rle2
-        before = module.LAUNCHES
+        before, kernels_before = module.LAUNCHES, rle2.KERNEL_LAUNCHES
         run()
         torch.cuda.synchronize()
         calls = module.LAUNCHES - before
+        kernels = rle2.KERNEL_LAUNCHES - kernels_before  # RLE2's memset and kernel
         ms, plain_ms = _cuda_ms(run, 50), _cuda_ms(plain, 5)
-        result[name] = {"max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms, "bound": bound}
-        # the TPU formulation's dominance compares (two for each of 256*255/2
-        # pairs and 256*256 for srank, per chunk) at the int32 rate, beside
-        extra = (f"tpu_formulation_compares_int32_us="
-                 f"{nc * (256 * 255 + 256 * 256) / INT32_OPS_PER_S * 1e6} " if name == "mtf" else "")
+        prof = kernel_device_us(run)
+        result[name] = {"max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms, "bound": bound,
+                        "device_us": prof["sum_us"]}
+        extra = ""
+        if name == "mtf":
+            # the TPU formulation's dominance compares (two for each of
+            # 256*255/2 pairs and 256*256 for srank, per chunk) at the int32
+            # rate, beside
+            extra = (f"tpu_formulation_compares_int32_us="
+                     f"{nc * (256 * 255 + 256 * 256) / INT32_OPS_PER_S * 1e6} ")
+        else:
+            per_call = kernels // max(calls, 1)
+            if per_call > 2:
+                raise AssertionError(f"rle2_encode_used enqueued {per_call} launches a call")
+            eob_ms = _cuda_ms(lambda: rle2.rle2_encode(r, n, eob), 50)
+            extra = (f"kernels_per_call={per_call} (the memset and the kernel, as the wrapper "
+                     f"reports them) eob_scalar_ms={eob_ms} ")
         _say("kernel", f"{name} N={N} n={n0} kernel_ms={ms} plain_ms={plain_ms} "
-                f"calls_per_block={calls} kernels_per_call=3 bound_us={bound[0] * 1e3} "
-                f"bound_by={bound[1]} {extra}(CUDA events, inputs=corpus_block0)")
+                f"calls_per_block={calls} device_us={prof['sum_us']} "
+                f"device_launches={prof['launches']} bound_us={bound[0] * 1e3} "
+                f"bound_by={bound[1]} {extra}(CUDA events; device time from torch.profiler, "
+                f"one call; inputs=corpus_block0)")
     return result
 
 
@@ -813,6 +852,12 @@ def batch_kernels(corpus, edges, rng):
     one = [rle2.rle2_encode(ranks[b], n[b], eob[b]) for b in range(B)]
     held("rle2_batch", "one-block rle2_encode", (syms, rle2_len, freqs),
          tuple(torch.stack([o[k] for o in one]) for k in range(3)))
+    # the look-back's races: 19 repeats, every output equal to the first
+    differing = sum(int((a.long() != b.long()).sum()) for _ in range(19)
+                    for a, b in zip(rle2.rle2_encode_batch(ranks, n, eob), (syms, rle2_len, freqs)))
+    _say("kernel", f"rle2_batch repeats B={B} calls=20 differing_slots={differing}")
+    if differing:
+        raise AssertionError("rle2_encode_batch gave different outputs on a repeat")
     got = compact.stage_compact(syms, rle2_len)
     held("compact", "plain", got, compact.stage_compact_ref(syms, rle2_len))
     hi_count = got[2].tolist()
@@ -841,13 +886,19 @@ def batch_kernels(corpus, edges, rng):
     }
     result = {}
     for name, (run, plain, bound, reps) in timed.items():
+        before = (rle2.BATCH_LAUNCHES, rle2.BATCH_KERNEL_LAUNCHES)
         ms, plain_ms = _cuda_ms(run, reps), _cuda_ms(plain, 2)
+        extra = ""
+        if name == "rle2_batch":  # every call of _cuda_ms's run counted
+            per_call = ((rle2.BATCH_KERNEL_LAUNCHES - before[1])
+                        // max(rle2.BATCH_LAUNCHES - before[0], 1))
+            extra = f"kernels_per_call={per_call} (the wrapper's count) "
         prof = kernel_device_us(run)
         result[name] = {"max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms, "bound": bound,
                         "device_us": prof["sum_us"]}
         _say("kernel", f"{name} B={B} N={N} kernel_ms={ms} plain_ms={plain_ms} "
                 f"device_us={prof['sum_us']} device_launches={prof['launches']} "
-                f"bound_us={bound[0] * 1e3} bound_by={bound[1]} "
+                f"bound_us={bound[0] * 1e3} bound_by={bound[1]} {extra}"
                 f"(CUDA events; device time from torch.profiler, one call; inputs={','.join(names)})")
 
     # the batched transform at B = 1, 4, 8 corpus blocks against the
@@ -988,7 +1039,8 @@ def devrefine_kernels(corpus, edges):
     nsel = H.nsel_cap(OUT)
     lens6 = torch.from_numpy(c_init_tables(freqs, 6, alpha).astype(np.int32)).to(dev)
     idx = torch.arange(OUT, dtype=torch.int64, device=dev)
-    flat = (idx // 50 * 258 + syms)[idx < rl_d]
+    flat = (idx // 50 * 258 + syms.to(torch.int64))[idx < rl_d]
+    sym_bytes = syms.element_size()  # the one-block symbols are uint16
     bidx = torch.arange(N + 8, dtype=torch.int64, device=dev)[None, :]
     bflat = ((torch.arange(B, device=dev)[:, None] * nsel + bidx // 50) * 258
              + bsyms.to(torch.int64))[bidx < blens[:, None]]
@@ -998,7 +1050,7 @@ def devrefine_kernels(corpus, edges):
         # symbols of the stream in, the whole histogram out
         "chunk_hist": (lambda: H.chunk_hist(syms, rl_d), lambda: H.chunk_hist_ref(syms, rl_d),
                        lambda: torch.bincount(flat, minlength=nsel * 258),
-                       _bound(4 * rl + 8 + hist_bytes, rl), 20, f"corpus_block0 OUT={OUT}"),
+                       _bound(sym_bytes * rl + 8 + hist_bytes, rl), 20, f"corpus_block0 OUT={OUT}"),
         "chunk_hist_batch": (lambda: H.chunk_hist_batch(bsyms, blens),
                              lambda: H.chunk_hist_batch_ref(bsyms, blens),
                              lambda: torch.bincount(bflat, minlength=B * nsel * 258),
@@ -1017,7 +1069,7 @@ def devrefine_kernels(corpus, edges):
         # symbols of the stream, selectors and tables in; the words out
         "pack_payload": (lambda: H.pack_payload(syms, rl_d, sel, codes, lens),
                          lambda: H.pack_payload_ref(syms, rl_d, sel, codes, lens), None,
-                         _bound(4 * rl + 8 + nsel + 2 * 6 * 258 * 4 + words_out, rl), 20,
+                         _bound(sym_bytes * rl + 8 + nsel + 2 * 6 * 258 * 4 + words_out, rl), 20,
                          f"corpus_block0 final_tables payload_bits={bits}"),
     }
     result = {}
@@ -1096,6 +1148,13 @@ def lean_ibwt_kernels(padded, n0, edges):
     got = compact.rle2_compact(r, N - 1000, all_used)
     held("rle2_compact", f"random_zero_runs eob=257 hi_count={int(got[3])}", got,
          compact.rle2_compact_ref(r, N - 1000, all_used))
+    # the look-back's races: 19 repeats, every output equal to the first
+    differing = sum(int((a.long() != b.long()).sum()) for _ in range(19)
+                    for a, b in zip(compact.rle2_compact(r, N - 1000, all_used), got))
+    _say("kernel", f"rle2_compact repeats inputs=random_zero_runs calls=20 "
+            f"differing_slots={differing}")
+    if differing:
+        raise AssertionError("rle2_compact gave different outputs on a repeat")
 
     for name, (key, last, n, data) in columns.items():
         held("next_pointers", f"{name} n={n} N={N}", (ibwt.next_pointers(last, n),),
@@ -1133,10 +1192,11 @@ def lean_ibwt_kernels(padded, n0, edges):
     sym = torch.where(idx < n, last.to(torch.int32), 256)
     rounds = ibwt.rounds_for(n)
     timed = {
-        # ranks and the used map in; symbols, bytes, length, slots, count out
+        # ranks and the used map in; uint16 symbols, bytes, length, slots,
+        # count out
         "rle2_compact": (lambda: compact.rle2_compact(ranks, n, used),
                          lambda: compact.rle2_compact_ref(ranks, n, used), None,
-                         _bound(4 * N + 256 + 4 * OUT + OUT + 8 + 4 * compact.HI_CAP + 4, N)),
+                         _bound(4 * N + 256 + 2 * OUT + OUT + 8 + 4 * compact.HI_CAP + 4, N)),
         # the column in, the pointers out; one operation a position
         "next_pointers": (lambda: ibwt.next_pointers(last, n),
                           lambda: ibwt.next_pointers_ref(last, n),
@@ -1149,12 +1209,17 @@ def lean_ibwt_kernels(padded, n0, edges):
     }
     result = {}
     for name, (run, plain, library, bound) in timed.items():
+        before = (compact.LEAN_LAUNCHES, compact.LEAN_KERNEL_LAUNCHES)
         ms, plain_ms = _cuda_ms(run, 20), _cuda_ms(plain, 3)
         library_ms = _cuda_ms(library, 20) if library else None
         prof = kernel_device_us(run)
         result[name] = {"max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
                         "library_ms": library_ms, "bound": bound, "device_us": prof["sum_us"]}
         extra = ""
+        if name == "rle2_compact":
+            per_call = ((compact.LEAN_KERNEL_LAUNCHES - before[1])
+                        // max(compact.LEAN_LAUNCHES - before[0], 1))
+            extra = f"kernels_per_call={per_call} (the wrapper's count) "
         if name == "bwt_inverse":
             # this formulation's HBM bytes: the next pointers (the keys
             # written, two passes' reads and writes, the pointers written),

@@ -99,8 +99,11 @@ def test_every_entry_point_passes_pointers_as_void_p():
 
     P, I = ctypes.c_void_p, ctypes.c_int
     assert _build.SIGNATURES["tpubz_mtf_ranks"] == [P, I, I, I, P, P, P, P]
-    assert _build.SIGNATURES["tpubz_rle2"] == [P, I, I, P, P, I, P, P, P, P]
     ints = ctypes.POINTER(ctypes.c_int)
+    assert _build.SIGNATURES["tpubz_rle2"] == [P, I, I, I, P, P, P, P, P, P, P, P,
+                                               ctypes.c_longlong, ints, P]
+    assert _build.SIGNATURES["tpubz_rle2_compact"] == [P, I, I, P, P, P, P, P, P, P, P,
+                                                       ctypes.c_longlong, ints, P]
     assert _build.SIGNATURES["tpubz_bwt_forward"] == [P, I, I, P, I, P, P, P, ints, P]
     assert _build.SIGNATURES["tpubz_bwt_sizes"] == [I, ints]
     assert _build.SIGNATURES["tpubz_radix_sort"] == [P, P, I, I, I, P, I, ints, P]
@@ -132,7 +135,7 @@ def test_batch_entry_points_pass_pointers_as_void_p():
     assert _build.SIGNATURES["tpubz_bwt_forward_batch"] == [P, ints, I, I, P, L, P, P, P, ints, P]
     assert _build.SIGNATURES["tpubz_bwt_batch_sizes"] == [ints, I, ctypes.POINTER(L)]
     assert _build.SIGNATURES["tpubz_mtf_ranks_batch"] == [P, P, I, I, I, P, P, P, P]
-    assert _build.SIGNATURES["tpubz_rle2_batch"] == [P, P, I, I, P, P, I, P, P, P, P]
+    assert _build.SIGNATURES["tpubz_rle2_batch"] == [P, P, I, I, P, P, P, P, P, P, L, ints, P]
     assert _build.SIGNATURES["tpubz_stage_compact"] == [P, P, I, I, P, P, P, P, P]
 
 
@@ -161,3 +164,29 @@ def test_builds_at_once_run_nvcc_once(tmp_path, build_dir, monkeypatch):
     assert results == [_build.LIB_PATH] * 3
     assert len(log.read_text().splitlines()) == len(_build.sources()) + 1
     assert sorted(os.listdir(build_dir)) == ["lib.so"]
+
+
+def test_rle2_probe_variants_follow_the_source():
+    """Each variant of tpubz_torch.rle2_probe applies its edits to
+    csrc/rle2.cu as it is, and changes it."""
+    from tpubz_torch import rle2_probe
+
+    texts = rle2_probe.variant_sources()
+    assert set(texts) == set(rle2_probe.VARIANTS)
+    base = texts.pop("as_is")
+    assert all(t != base for t in texts.values())
+
+
+def test_rle2_wrapper_constants_follow_the_source():
+    """kernels/rle2.py's tile and output limit, from which it sizes the
+    scratch and refuses rows, are csrc/rle2.cu's."""
+    import re
+
+    from tpubz_torch.kernels import rle2
+
+    text = open(os.path.join(_build.CSRC_DIR, "rle2.cu")).read()
+    value = {name: int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+             for name in ("kThreads", "kPer", "kFieldBits")}
+    assert rle2.TILE == value["kThreads"] * value["kPer"]
+    assert rle2.MAX_OUT == 1 << value["kFieldBits"]
+    assert rle2.scratch_bytes(1, 0) == 8 + 4 and rle2.scratch_bytes(2, 4097) == 2 * (16 + 4)

@@ -90,7 +90,7 @@ def test_rle2_kernels_match_plain_level9(cuda, name):
     assert rle2.LAUNCHES == before + 1
     want = rle2.rle2_encode_ref(ranks, n, eob)
     for g, w in zip(got, want):
-        assert g.device.type == "cuda" and g.dtype == w.dtype and torch.equal(g, w)
+        assert g.device.type == "cuda" and g.dtype == w.dtype and torch.equal(g.long(), w.long())
 
 
 def _zero_runs(size, seed):
@@ -116,7 +116,87 @@ def test_rle2_random_long_zero_runs(cuda, seed, n):
         got = rle2.rle2_encode(ranks, n, eob)
         want = rle2.rle2_encode_ref(ranks, n, eob)
         torch.cuda.synchronize()
-        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        assert all(torch.equal(g.long(), w.long()) for g, w in zip(got, want))
+
+
+def _three_forms(ranks, n, used):
+    """Each RLE2 call form on one row, every output as int64: the one-block
+    call with the EOB from the used map and as a device scalar, the batched
+    call (a batch of one row) and the lean call."""
+    eob = used.sum() + 1
+    forms = {
+        "used": rle2.rle2_encode_used(ranks, n, used),
+        "eob": rle2.rle2_encode(ranks, n, eob),
+        "batch": rle2.rle2_encode_batch(ranks[None], [n], eob.reshape(1).int()),
+    }
+    from tpubz_torch.kernels import compact
+
+    forms["lean"] = compact.rle2_compact(ranks, n, used)
+    torch.cuda.synchronize()
+    return {k: [t.long() for t in v] for k, v in forms.items()}
+
+
+def _held_forms(got, ranks, n, used):
+    """_three_forms' outputs equal the plain versions on the CPU."""
+    from tpubz_torch.kernels import compact
+
+    c_ranks, c_used = ranks.cpu(), used.cpu()
+    want = rle2.rle2_encode_ref(c_ranks, n, c_used.sum() + 1)
+    for form in ("used", "eob"):
+        assert all(torch.equal(g.cpu(), w.long()) for g, w in zip(got[form], want)), form
+    assert all(torch.equal(g[0].cpu(), w.long()) for g, w in zip(got["batch"], want))
+    lean = compact.rle2_compact_ref(c_ranks, n, c_used)
+    assert all(torch.equal(g.cpu(), w.long()) for g, w in zip(got["lean"], lean))
+
+
+@pytest.mark.parametrize("source", ["corpus_block0", "zero_runs"])
+def test_rle2_forms_repeat_identically(cuda, source):
+    """The look-back's races: the same call 20 times, on the corpus block's
+    MTF ranks and on random ranks with zero runs up to 70,000 long, gives
+    identical outputs in every form, equal to the plain versions."""
+    if source == "corpus_block0":
+        last, n = _level9_last(source, cuda)
+        ranks, used = mtf.mtf_ranks(last, n)
+    else:
+        n = 899_999
+        ranks = torch.from_numpy(_zero_runs(900_096, 3)).to(cuda)
+        ranks[n:] = 5
+        used = torch.ones(256, dtype=torch.bool, device=cuda)
+    first = _three_forms(ranks, n, used)
+    _held_forms(first, ranks, n, used)
+    for _ in range(19):
+        again = _three_forms(ranks, n, used)
+        for form, outs in first.items():
+            assert all(torch.equal(a, b) for a, b in zip(outs, again[form])), form
+
+
+def test_transform_takes_the_eob_from_the_used_map(cuda):
+    """DeviceBlockEncoder.transform's RLE2 (the EOB counted on the card from
+    the used map) equals rle2_encode(ranks, n, used.sum() + 1), and launches
+    no conversion of the symbols: they come back as uint16."""
+    blk = np.frombuffer(edge_blocks()["all256"], np.uint8)
+    enc = DeviceBlockEncoder(9, cuda)
+    key, syms, rle2_len, freqs, used = enc.transform(blk)
+    last = enc.transform_bwt(blk)[1]
+    ranks, used2 = mtf.mtf_ranks(last, blk.size)
+    want = rle2.rle2_encode(ranks, blk.size, used2.sum() + 1)
+    torch.cuda.synchronize()
+    assert torch.equal(used, used2) and syms.dtype == torch.uint16
+    assert all(torch.equal(g.long(), w.long()) for g, w in zip((syms, rle2_len, freqs), want))
+    assert int(syms[int(rle2_len) - 1]) == 257
+
+
+@pytest.mark.parametrize("n,N", [(0, 4096), (1, 4096), (2, 4096), (0, 16), (2, 16),
+                                 (5000, 12_288), (899_997, 900_096)])
+def test_rle2_forms_at_small_and_ragged_lengths(cuda, n, N):
+    """n = 0, 1, 2, and n not a multiple of the 4096-rank tile with nonzero
+    pad lanes after it, on all three forms, against the plain versions."""
+    rng = np.random.default_rng(n + N)
+    r = np.where(rng.random(N) < 0.3, rng.integers(1, 256, N), 0).astype(np.int32)
+    r[n:] = 255
+    ranks = torch.from_numpy(r).to(cuda)
+    used = torch.from_numpy(rng.random(256) < 0.5).to(cuda)
+    _held_forms(_three_forms(ranks, n, used), ranks, n, used)
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
@@ -843,7 +923,7 @@ def test_rle2_compact_on_card_matches_plain_level9(cuda, name):
     torch.cuda.synchronize()
     assert compact.LEAN_LAUNCHES == before + 1
     for g, w in zip(got, compact.rle2_compact_ref(ranks, blk.size, used)):
-        assert g.dtype == w.dtype and g.shape == w.shape and torch.equal(g, w)
+        assert g.dtype == w.dtype and g.shape == w.shape and torch.equal(g.long(), w.long())
     if name == "overflow":
         assert int(got[3]) > compact.HI_CAP
     a, b = enc.fetch(enc.transform(blk)), enc.fetch(enc.transform(blk, lean=True))
@@ -869,7 +949,7 @@ def test_rle2_compact_on_card_random_runs(cuda):
         used = torch.ones(256, dtype=torch.bool, device=cuda)
         for g, w in zip(compact.rle2_compact(ranks, n, used),
                         compact.rle2_compact_ref(ranks, n, used)):
-            assert torch.equal(g, w), (N, n)
+            assert torch.equal(g.long(), w.long()), (N, n)
 
 
 def test_encode_block_lean_on_card_matches_native(cuda, tpubz_native):

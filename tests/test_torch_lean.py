@@ -101,7 +101,7 @@ def test_rle2_compact_matches_tpubz(case):
     W = ranks.shape[0] + 8
     assert u8.dtype == torch.uint8 and u8.shape == (W,) and W % 4 == 0
     assert hi_pos.dtype == torch.int32 and hi_pos.shape == (HI_CAP,)
-    assert syms.dtype == torch.int32 and syms.shape == (W,)
+    assert syms.dtype == torch.uint16 and syms.shape == (W,)
     assert int(rl) == t_rl and int(hc) == t_hc
     assert np.array_equal(u8.numpy(), t_u8)
     assert np.array_equal(hi_pos.numpy()[: t_hi.size], t_hi)

@@ -309,3 +309,10 @@ def test_module_entry_point_asks_for_the_card(sample, tmp_path):
                           cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0 and "is_available" in proc.stderr
     assert p.exists() and not _bz(p).exists()
+
+
+def test_version_equals_tpubz():
+    """The port carries tpubz's version string."""
+    import tpubz
+
+    assert tpubz_torch.__version__ == tpubz.__version__ == "0.1.0"

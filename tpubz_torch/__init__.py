@@ -43,6 +43,8 @@ never falls back to the CPU, and a device error always reaches the caller.
 from .stream.api import compress, compress_cpu
 from .stream.decode import decompress
 
+__version__ = "0.1.0"  # tpubz's
+
 __all__ = [
     "BZ2Compressor",
     "BZ2Decompressor",

@@ -20,8 +20,9 @@ for that event, on whichever thread calls it. On a CPU device the copies are
 the tensors themselves.
 
 The one-block path has tpubz's two forms. ``transform(blk)`` gives the
-symbols as int16 with their frequencies from the device; ``transform(blk,
-lean=True)`` is tpubz's lean chain (BWT, MTF, ``kernels/compact.py:
+symbols in tpubz's uint16 with their frequencies from the device, the EOB
+counted from the used map on the card (``rle2_encode_used``);
+``transform(blk, lean=True)`` is tpubz's lean chain (BWT, MTF, ``kernels/compact.py:
 rle2_compact``): no frequencies on the device, the symbols as bytes clamped
 at 255 and the slots of the rare symbols 256, and ``fetch`` counts the
 frequencies on the host and patches those symbols and the EOB back, as
@@ -50,7 +51,7 @@ from ..kernels.compact import HI_CAP, rle2_compact
 from ..kernels.huffman_dev import chunk_hist, nsel_cap, pack_payload, refine_pass
 from ..kernels.mtf import CHUNK as MTF_CHUNK
 from ..kernels.mtf import mtf_ranks
-from ..kernels.rle2 import rle2_encode
+from ..kernels.rle2 import rle2_encode_used
 from ..kernels.suffix_sort import bwt_forward
 from ..native import code_lengths_native
 from .emit import emit_block
@@ -172,8 +173,7 @@ class DeviceBlockEncoder:
         if lean:
             rle2_len, syms_u8, hi_pos, hi_count, syms = rle2_compact(ranks, n, used)
             return key, syms, rle2_len, used, syms_u8, hi_pos, hi_count
-        eob = used.sum() + 1
-        syms, rle2_len, freqs = rle2_encode(ranks, n, eob)
+        syms, rle2_len, freqs = rle2_encode_used(ranks, n, used)
         return key, syms, rle2_len, freqs, used
 
     def transform_bwt(self, rle1_block: np.ndarray):
@@ -186,7 +186,7 @@ class DeviceBlockEncoder:
     def fetch_async(self, out) -> Pending:
         """Start the host copy of a transform result, of either form;
         ``.result()`` is ``fetch``'s tuple. The scalars, freqs and used map
-        travel as one int64 vector and the symbols (<= 258) as int16: two
+        travel as one int64 vector and the uint16 symbols as they are: two
         copies. The lean form's scalars and used map travel as one int64
         vector, beside the byte stream and the slots of the symbols 256:
         three copies behind one event."""
@@ -194,14 +194,14 @@ class DeviceBlockEncoder:
             return self._fetch_lean_async(out)
         key, syms, rle2_len, freqs, used = out
         small = _small_vector(key, rle2_len, freqs, used)
-        (h_small, h_syms), event = host_copies(self.device, small, syms.to(torch.int16))
+        (h_small, h_syms), event = host_copies(self.device, small, syms)
 
         def finish():
             s = h_small.numpy()
             rl = int(s[1])
             return (
                 int(s[0]),
-                h_syms[:rl].numpy().view(np.uint16),
+                h_syms[:rl].numpy(),
                 rl,
                 s[2:260].copy(),
                 s[260:] != 0,

@@ -42,8 +42,11 @@ _INTS = ctypes.POINTER(ctypes.c_int)  # host int array, or an int out argument
 SIGNATURES = {
     # last, n, N, group, scratch, used, ranks, stream
     "tpubz_mtf_ranks": [_P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P],
-    # ranks, n, N, eob, scratch, nb, syms, rle2_len, freqs, stream
-    "tpubz_rle2": [_P, ctypes.c_int, ctypes.c_int, _P, _P, ctypes.c_int, _P, _P, _P, _P],
+    # ranks, n, N, eob value, eob (device int64 or None), eob (device int32
+    # or None), used (device bool[256] or None), scratch, syms, rle2_len,
+    # freqs, the cleared region and its bytes, launched (out), stream
+    "tpubz_rle2": [_P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, _P,
+                   ctypes.c_longlong, _INTS, _P],
     # keys, payload or None, n, plan, len(plan), launched (out), stream
     "tpubz_bitonic_run_i32": [_P, _P, ctypes.c_int, _INTS, ctypes.c_int, _INTS, _P],
     "tpubz_bitonic_run_i64": [_P, _P, ctypes.c_int, _INTS, ctypes.c_int, _INTS, _P],
@@ -63,13 +66,14 @@ SIGNATURES = {
     "tpubz_bwt_batch_sizes": [_INTS, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)],
     # lasts, n (device int32[B]), B, N, group, scratch, used, ranks, stream
     "tpubz_mtf_ranks_batch": [_P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P],
-    # ranks, n (device int32[B]), B, N, eob (device int32[B]), scratch, nb,
-    # syms, rle2_len, freqs, stream
-    "tpubz_rle2_batch": [_P, _P, ctypes.c_int, ctypes.c_int, _P, _P, ctypes.c_int, _P, _P, _P,
-                         _P],
-    # ranks, n, N, used, scratch, nb, syms, rle2_len, u8, hi_pos, hi_count, stream
-    "tpubz_rle2_compact": [_P, ctypes.c_int, ctypes.c_int, _P, _P, ctypes.c_int, _P, _P, _P, _P,
-                           _P, _P],
+    # ranks, n (device int32[B]), B, N, eob (device int32[B]), scratch, syms,
+    # rle2_len, freqs, the cleared region and its bytes, launched (out), stream
+    "tpubz_rle2_batch": [_P, _P, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P, _P,
+                         ctypes.c_longlong, _INTS, _P],
+    # ranks, n, N, used, scratch, syms, rle2_len, u8, hi_pos, hi_count, the
+    # cleared region and its bytes, launched (out), stream
+    "tpubz_rle2_compact": [_P, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, _P,
+                           ctypes.c_longlong, _INTS, _P],
     # syms, rle2_len, B, OUT, scratch, syms_u8, hi_packed, hi_count, stream
     "tpubz_stage_compact": [_P, _P, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P],
     # n, N, sizes (out, 2 long longs: the next pointers' scratch bytes, the

@@ -30,9 +30,10 @@ count exceeds the cap is fetched as its full symbol row. tpubz cuts the
 byte stream into four quarters (``reshape(4, -1)`` views; N + 8 is a
 multiple of 4, N a multiple of 256), which here is the one tensor. For a
 CUDA tensor it is one call into ``csrc/rle2.cu`` (``tpubz_rle2_compact``:
-the three RLE2 kernels with the histogram left out, the byte written beside
-each symbol, and the rank-255 literals ranked in input order by the tile
-statistics, the tile scan and a block scan, so that no sort runs); for a
+the memset and the one-pass RLE2 kernel with the histogram left out, the
+byte written beside each symbol, the EOB counted from the used map on the
+card, and the rank-255 literals ranked in input order by their count in
+each tile's look-back prefix and a block scan, so that no sort runs); for a
 CPU tensor the plain version ``rle2_compact_ref``, tpubz's formulation:
 ``rle2_encode_ref``, the clamp and the positions of the flagged slots.
 """
@@ -51,9 +52,11 @@ TILE = 4096  # symbols one CTA of csrc/compact.cu takes (256 threads x 16)
 HI_NONE = 1 << 30  # a hi_pos entry past the count
 
 # calls into the kernel library in this process (CPU calls are not
-# counted): stage_compact's (one kernel each) and rle2_compact's (three)
+# counted): stage_compact's (one kernel each) and rle2_compact's, and the
+# launches rle2_compact's calls enqueued (the memset and the kernel)
 LAUNCHES = 0
 LEAN_LAUNCHES = 0
+LEAN_KERNEL_LAUNCHES = 0
 _launch_lock = threading.Lock()
 
 
@@ -116,15 +119,15 @@ def stage_compact(syms: torch.Tensor, rle2_len: torch.Tensor):
 
 def rle2_compact_ref(ranks: torch.Tensor, n: int, used: torch.Tensor):
     """Plain torch version of ``rle2_compact``."""
-    eob = used.sum() + 1
-    syms, rle2_len, _ = rle2.rle2_encode_ref(ranks, n, eob)
+    syms, rle2_len, _ = rle2.encode_ref64(ranks, n, used.sum() + 1)
     idx = torch.arange(syms.shape[0], device=syms.device)
     is_hi = (syms >= 256) & (idx < rle2_len - 1)
     hi_count = is_hi.sum(dtype=torch.int32)
     hi_pos = torch.full((HI_CAP,), HI_NONE, dtype=torch.int32, device=syms.device)
     found = torch.nonzero(is_hi).flatten()[:HI_CAP]  # ascending slots
     hi_pos[: found.numel()] = found.to(torch.int32)
-    return rle2_len, torch.clamp(syms, max=255).to(torch.uint8), hi_pos, hi_count, syms
+    return (rle2_len, torch.clamp(syms, max=255).to(torch.uint8), hi_pos, hi_count,
+            syms.to(torch.uint16))
 
 
 def rle2_compact(ranks: torch.Tensor, n: int, used: torch.Tensor):
@@ -132,12 +135,12 @@ def rle2_compact(ranks: torch.Tensor, n: int, used: torch.Tensor):
     block's used map (EOB = its count + 1), on the ranks' device.
 
     Returns (rle2_len 0-d int64, syms_u8 uint8[N+8], hi_pos int32[HI_CAP],
-    hi_count 0-d int32, syms int32[N+8]): syms and rle2_len are
+    hi_count 0-d int32, syms uint16[N+8]): syms and rle2_len are
     ``rle2_encode``'s, syms_u8 = min(syms, 255), and hi_pos the ascending
     slots below rle2_len - 1 that hold 256, padded with 1 << 30. A CUDA
-    tensor launches the kernels on the current stream or raises; a CPU
+    tensor launches the kernel on the current stream or raises; a CPU
     tensor runs the plain version."""
-    global LEAN_LAUNCHES
+    global LEAN_LAUNCHES, LEAN_KERNEL_LAUNCHES
     dev = ranks.device
     if used.dtype != torch.bool or used.shape != (256,) or used.device != dev:
         raise TypeError("used must be a bool[256] tensor on the ranks' device")
@@ -145,24 +148,16 @@ def rle2_compact(ranks: torch.Tensor, n: int, used: torch.Tensor):
         return rle2_compact_ref(ranks, n, used)
     if dev.type != "cuda":
         raise ValueError(f"rle2_compact: unsupported device {dev}")
-    rle2._check(ranks, n)  # the kernels are csrc/rle2.cu's
+    rle2._check(ranks, n)  # the kernel is csrc/rle2.cu's
     N = ranks.shape[0]
-    nb = -(-N // rle2.TILE)
-    used = used.contiguous()
-    scratch = torch.empty(7 * nb, dtype=torch.int32, device=dev)
-    syms = torch.empty(N + 8, dtype=torch.int32, device=dev)
-    rle2_len = torch.empty((), dtype=torch.int64, device=dev)
-    syms_u8 = torch.empty(N + 8, dtype=torch.uint8, device=dev)
-    hi_pos = torch.empty(HI_CAP, dtype=torch.int32, device=dev)
-    hi_count = torch.empty((), dtype=torch.int32, device=dev)
-    lib = _build.load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.tpubz_rle2_compact(ranks.data_ptr(), n, N, used.data_ptr(), scratch.data_ptr(),
-                                    nb, syms.data_ptr(), rle2_len.data_ptr(), syms_u8.data_ptr(),
-                                    hi_pos.data_ptr(), hi_count.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"tpubz_rle2_compact launch failed: CUDA error {rc}")
+    (rle2_len, hi_count, hi_pos, scratch, syms, syms_u8), zero, zero_bytes = rle2.carve(
+        dev, ((torch.int64, ()), (torch.int32, ()), (torch.int32, (HI_CAP,))),
+        ((None, rle2.scratch_bytes(1, N)), (torch.uint16, (N + 8,)), (torch.uint8, (N + 8,))))
+    launched = rle2.enqueue("tpubz_rle2_compact", dev, ranks.data_ptr(), n, N,
+                            used.contiguous().data_ptr(), scratch, syms.data_ptr(),
+                            rle2_len.data_ptr(), syms_u8.data_ptr(), hi_pos.data_ptr(),
+                            hi_count.data_ptr(), zero, zero_bytes)
     with _launch_lock:
         LEAN_LAUNCHES += 1
+        LEAN_KERNEL_LAUNCHES += launched
     return rle2_len, syms_u8, hi_pos, hi_count, syms

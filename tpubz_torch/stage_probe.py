@@ -31,8 +31,8 @@ mixed corpus plus the edge blocks (``tpubz_torch.corpus``, as
 - ``probation``: the same for 1x the cores and window 16 by the cap on
   device blocks in flight before a stream's first device completion;
 - ``chain``: the device microseconds of each kernel that one ``mtf_ranks``
-  and one ``rle2_encode`` call launch on the corpus's first block, from
-  ``torch.profiler``;
+  and one ``rle2_encode_used`` call (RLE2 as the transform calls it)
+  launch on the corpus's first block, from ``torch.profiler``;
 - ``bwt_anatomy`` (alone with ``--mode bwt_anatomy``): of one
   ``bwt_forward`` call on the corpus's first block, the device
   microseconds and launches of each kernel (``bwt_keys``,
@@ -93,7 +93,7 @@ from .format.constants import block_budget
 from .format.crc import block_crc
 from .hostref.rle1 import rle1_blocks
 from .kernels.mtf import mtf_ranks
-from .kernels.rle2 import rle2_encode
+from .kernels.rle2 import rle2_encode_used
 from .kernels.suffix_sort import bwt_forward
 from .native import mtf_rle2_native
 from .stream import api
@@ -165,7 +165,7 @@ def stage_times(data: bytes, level: int, device) -> dict:
         dev, row["upload"] = _timed(lambda: enc.upload(blk), device)
         (key, last), row["bwt"] = _timed(lambda: bwt_forward(dev, n), device)
         (ranks, used), row["mtf"] = _timed(lambda: mtf_ranks(last, n), device)
-        rle, row["rle2"] = _timed(lambda: rle2_encode(ranks, n, used.sum() + 1), device)
+        rle, row["rle2"] = _timed(lambda: rle2_encode_used(ranks, n, used), device)
         fetched, row["fetch"] = _timed(lambda: enc.fetch((key, *rle, used)), device)
         row["dispatcher_total"] = sum(row.values())
         t0 = time.perf_counter()
@@ -358,16 +358,16 @@ def kernel_device_us(fn) -> dict:
 
 
 def chain_profile(mib: int, seed: int) -> dict:
-    """Device µs by kernel of one mtf_ranks and one rle2_encode call on the
-    BWT of the corpus's first level-9 block."""
+    """Device µs by kernel of one mtf_ranks and one rle2_encode_used call
+    (RLE2 as the transform calls it) on the BWT of the corpus's first
+    level-9 block."""
     n = 900_000
     padded = torch.zeros(block_n(9), dtype=torch.uint8, device="cuda")
     padded[:n] = torch.frombuffer(bytearray(mixed_corpus(mib, seed)[:n]), dtype=torch.uint8).to("cuda")
     last = bwt_forward(padded, n)[1]
     ranks, used = mtf_ranks(last, n)
-    eob = used.sum() + 1
     return {"mtf": kernel_device_us(lambda: mtf_ranks(last, n)),
-            "rle2": kernel_device_us(lambda: rle2_encode(ranks, n, eob))}
+            "rle2": kernel_device_us(lambda: rle2_encode_used(ranks, n, used))}
 
 
 def stream_spans(data: bytes, level: int, stage: str, device="cuda") -> dict:
@@ -484,7 +484,7 @@ def bwt_anatomy(data: bytes) -> dict:
         for name, fn in (("call", bwt_forward), ("plain", suffix_sort.bwt_forward_ref)):
             (_, last), _ = _timed(lambda: fn(dev, blk.size), "cuda")
             (ranks, used), mtf_ms = _timed(lambda: mtf_ranks(last, blk.size), "cuda")
-            _, rle2_ms = _timed(lambda: rle2_encode(ranks, blk.size, used.sum() + 1), "cuda")
+            _, rle2_ms = _timed(lambda: rle2_encode_used(ranks, blk.size, used), "cuda")
             after[name].append({"mtf": mtf_ms, "rle2": rle2_ms})
     return {
         "stages_after_bwt_median_ms": {

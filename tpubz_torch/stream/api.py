@@ -18,7 +18,7 @@ Routing, as in tpubz:
     overdue device head twinned onto a free CPU worker (first result wins
     the ordered drain: the bytes are the same);
   - the device runs one of two stages: ``"full"`` (BWT, MTF, RLE2 on the
-    device, fetched as int16 symbols with the device's frequencies;
+    device, fetched as uint16 symbols with the device's frequencies;
     refinement and emission on the host) or ``"bwt"`` (the suffix
     sort on the device; MTF/RLE2 in the native ``mtf_rle2_native`` on the
     fetched last column). ``"auto"`` picks by ``rigprofile.choose_stage``
