@@ -12,9 +12,11 @@ MTF and RLE2 on the corpus's first block and the three edge blocks, RLE2
 also on random ranks with long zero runs, with the EOB as a device scalar
 and from the used map, and 20 repeats of each RLE2 form identical, since
 its tiles race through a look-back; the BWT's library call, key and
-every lane of the last column, on the same four blocks; the radix sort
-under it on random 60-bit keys and on the keys of the corpus block's first
-two doubling rounds),
+every lane of the last column, on the same four blocks, 20 calls equal on
+the corpus and near-periodic blocks (graph replays, look-back races); the
+radix sort under it on random 60-bit keys, on the keys of the corpus
+block's doubling rounds 0, 1 and 3 and of the near-periodic block's round
+5, 20 calls equal on each),
 checks the BWT on the card against the port's plain path on the CPU for
 real and edge blocks, and a short level-9 stream byte for byte, then drives
 level-9 multi-block encode through
@@ -77,9 +79,12 @@ the int32 rate of the card's CUDA cores (132 SMs x 64 lanes x 1.98 GHz,
 lanes, and an FMA counted as two). The MTF and RLE2 launches are calls of
 their wrappers (MTF three kernels, RLE2 a memset and one kernel, as its
 wrapper reports them); the BWT's are calls of its wrapper (one library call a
-block: per doubling round the keys with their histogram, the radix passes
-and the re-rank, then the last column); the radix sort's are the sorts run
-on the card, which on the main path are the BWT call's, one a round. The
+block: a graph whose loop runs a doubling round a pass of its body on the
+card, the large classes' keys with their histogram and radix passes, the
+small classes' shared-memory sort, the re-rank; then the last column);
+the radix sort's are the sorts run on the card, which on the main path
+are the BWT call's: one in each round whose list of large classes was not
+empty, as the card counted them. The
 bitonic sorts (and stage_passes, the launches of the two pass kernels
 bitonic_global and bitonic_tile) left the main path when the BWT moved to
 the radix sort: their main-path launches are 0, and [path] fails if one
@@ -127,13 +132,34 @@ def _say(phase, msg):
     print(f"[{phase}] {msg}", flush=True)
 
 
+def _check_bwt_record(record, name):
+    """A finished one-block BWT call's record, as the card counted it: every
+    body kernel of csrc/bwt.cu launched once a round and the radix passes as
+    many times a round as the library gives; a sort in round 0 and in every
+    later round whose large list (the record's per-round word) was not
+    empty, each of its passes run or skipped."""
+    from tpubz_torch.kernels import suffix_sort
+
+    rounds, n_passes = record["rounds"], suffix_sort.call_sizes(1)[3]
+    want = {k: rounds * (n_passes if k == "bwt_pass" else 1) for k in suffix_sort.BODY}
+    got = {k: record[k] for k in suffix_sort.BODY}
+    sorts = int(rounds > 0) + sum(int(w[3] > 0) for w in record["words"][:-1])
+    if (got != want or record["sorts"] != sorts
+            or record["passes_run"] + record["skipped"] != n_passes * sorts):
+        raise AssertionError(f"bwt_forward on {name}: the card counted {got} launches, "
+                             f"{record['sorts']} sorts, {record['passes_run']} passes run and "
+                             f"{record['skipped']} skipped in {rounds} rounds ({sorts} with a "
+                             f"large list)")
+
+
 def _zero_counts():
     from tpubz_torch.kernels import bitonic, compact, ibwt, mtf, radix, rle2, suffix_sort
 
     mtf.LAUNCHES = rle2.LAUNCHES = compact.LEAN_LAUNCHES = 0
     ibwt.NEXT_LAUNCHES = ibwt.INVERSE_LAUNCHES = ibwt.ROUNDS_RUN = 0
     suffix_sort.LAUNCHES = suffix_sort.ROUNDS_RUN = suffix_sort.KERNEL_LAUNCHES = 0
-    suffix_sort.ACTIVE_SORTED = 0
+    suffix_sort.ACTIVE_SORTED = suffix_sort.PASSES_RUN = suffix_sort.PASSES_SKIPPED = 0
+    suffix_sort.HOST_US.update(dict.fromkeys(suffix_sort.HOST_US, 0))
     radix.LAUNCHES = radix.SORTS = radix.PASS_LAUNCHES = 0
     bitonic.LAUNCHES = bitonic.PASS_LAUNCHES = 0
     bitonic.CALLS.update(dict.fromkeys(bitonic.CALLS, 0))
@@ -401,6 +427,8 @@ def _smoke(tmp):
                 "radix": radix.SORTS}
     rounds, bwt_kernel_launches = suffix_sort.ROUNDS_RUN, suffix_sort.KERNEL_LAUNCHES
     active_sorted, radix_passes = suffix_sort.ACTIVE_SORTED, radix.PASS_LAUNCHES
+    passes_run, skipped = suffix_sort.PASSES_RUN, suffix_sort.PASSES_SKIPPED
+    bwt_host_us = dict(suffix_sort.HOST_US)
     sort_calls = dict(bitonic.CALLS)
     pass_launches = bitonic.PASS_LAUNCHES
     blocks = tpubz_torch.stream.api.last_stream_stats["blocks"]
@@ -411,16 +439,24 @@ def _smoke(tmp):
             f"round_trips={'+'.join(ran)}")
 
     # the main path went through the kernels, without jax: every block ran
-    # the BWT's library call, its MTF and its RLE2; the call ran a radix
-    # sort per doubling round (at least one a block) with all the passes
-    # the library gives a round, and no bitonic sort ran
+    # the BWT's library call, its MTF and its RLE2. The card counted what
+    # the call's graph ran: a round of its body a doubling round (at least
+    # one a block), each body kernel of csrc/bwt.cu launched once a round
+    # and the radix passes as often as the library gives a round, besides
+    # the setup and the last column a call (counted on the host); a radix
+    # sort in every round whose large list was not empty (round 0's always),
+    # each of its passes either run or skipped; no bitonic sort ran
     n_passes = suffix_sort.call_sizes(1)[3]
+    per_round, per_call = suffix_sort.launch_sizes()
     if min(launches.values()) < blocks:
         raise AssertionError(f"BWT, MTF, RLE2 and radix launches {launches} for {blocks} blocks")
-    if launches["radix"] != rounds or rounds < blocks or radix_passes < n_passes * rounds:
+    if (not blocks <= launches["radix"] <= rounds or radix_passes != n_passes * rounds
+            or passes_run + skipped != n_passes * launches["radix"]):
         raise AssertionError(f"{launches['radix']} radix sorts with {radix_passes} pass launches "
-                             f"for {rounds} rounds in {blocks} blocks")
-    if any(sort_calls.values()) or pass_launches or bwt_kernel_launches < 3 * rounds + blocks:
+                             f"({passes_run} run, {skipped} skipped) for {rounds} rounds in "
+                             f"{blocks} blocks")
+    if (any(sort_calls.values()) or pass_launches
+            or bwt_kernel_launches != per_round * rounds + per_call * launches["bwt"]):
         raise AssertionError(f"bitonic sorts {sort_calls} ({pass_launches} pass kernels) and "
                              f"{bwt_kernel_launches} BWT-kernel launches in {rounds} rounds")
     _no_reference_modules()
@@ -428,7 +464,10 @@ def _smoke(tmp):
     _say("path", f"blocks={blocks} bwt_launches={launches['bwt']} bwt_rounds={rounds} "
             f"bwt_active_rotations_sorted={active_sorted} "
             f"bwt_kernel_launches={bwt_kernel_launches} radix_sorts={launches['radix']} "
-            f"radix_pass_launches={radix_passes} mtf_launches={launches['mtf']} "
+            f"radix_pass_launches={radix_passes} radix_passes_run={passes_run} "
+            f"radix_passes_skipped={skipped} "
+            f"bwt_host_us={json.dumps(bwt_host_us, separators=(',', ':'))} "
+            f"mtf_launches={launches['mtf']} "
             f"rle2_launches={launches['rle2']} "
             f"bitonic_wrapper_calls={bitonic.LAUNCHES} bitonic_sorts={sort_calls} "
             f"bitonic_pass_kernel_launches={pass_launches} MB={mb} seconds={dt} "
@@ -659,12 +698,16 @@ def chain_kernels(padded, n0, edges, rng):
 def bwt_kernels(padded, n0, edges):
     """The BWT's library call against its plain version on the card, exactly
     (the key and every lane of the last column), on the corpus's first block
-    and each edge block; each call must run one radix sort a round and no
-    bitonic sort. Then the call's ms and the plain version's on the corpus
-    block (CUDA events; the call waits for each round's state, one round
-    behind the card), its rounds and active rotations, and the bounds: what
-    any BWT of the block needs, what this formulation moves on this block's
-    data, and what each of its kernels moves."""
+    and each edge block; each call's record, as the card counted it, must
+    hold every body kernel once a round, a radix sort in each round with a
+    large list, and no bitonic sort may run; 20 calls on the corpus block and on the near-periodic
+    block (the graph replayed, the look-backs racing) give the same key and
+    column. Then the call's ms and the plain version's on the corpus block
+    (CUDA events; the rounds run on the card, the call waits once, after
+    its last column), its rounds, active rotations and each round's large
+    and small lists, and the bounds: what any BWT of the block needs, what
+    this formulation moves on this block's data, and what each of its
+    kernels moves."""
     from tpubz_torch.kernels import bitonic, radix, suffix_sort
     from tpubz_torch.kernels.suffix_sort import bwt_forward, bwt_forward_ref
 
@@ -678,12 +721,13 @@ def bwt_kernels(padded, n0, edges):
     for name, (data, n) in inputs.items():
         before = (suffix_sort.LAUNCHES, suffix_sort.ROUNDS_RUN, suffix_sort.ACTIVE_SORTED,
                   radix.SORTS, bitonic.PASS_LAUNCHES)
-        key, last = bwt_forward(data, n)
-        torch.cuda.synchronize()
+        key, last, call = suffix_sort.bwt_forward_async(data, n)
+        call.finish()
         calls = suffix_sort.LAUNCHES - before[0]
         rounds = suffix_sort.ROUNDS_RUN - before[1]
         active = suffix_sort.ACTIVE_SORTED - before[2]
         sorts = radix.SORTS - before[3]
+        _check_bwt_record(call.rows[0], name)
         rkey, rlast = bwt_forward_ref(data, n)
         mismatches = int(key != rkey) + int((last != rlast).sum())
         e = max(abs(int(key) - int(rkey)), int((last.int() - rlast.int()).abs().max()))
@@ -693,38 +737,60 @@ def bwt_kernels(padded, n0, edges):
                 f"radix_sorts={sorts} mismatches={mismatches} max_abs_err={e} tolerance=0")
         if mismatches:
             raise AssertionError(f"bwt_forward disagrees with its plain version on {name}")
-        if calls != 1 or sorts != rounds or bitonic.PASS_LAUNCHES != before[4]:
+        if calls != 1 or bitonic.PASS_LAUNCHES != before[4]:
             raise AssertionError(f"bwt_forward on {name}: {calls} calls, {sorts} radix sorts in "
                                  f"{rounds} rounds, {bitonic.PASS_LAUNCHES - before[4]} "
                                  f"bitonic launches")
+    for name in ("corpus_block0", "near_periodic"):
+        data, n = inputs[name]
+        want = bwt_forward(data, n)
+        differing = sum(int(k != want[0]) + int((c != want[1]).sum())
+                        for k, c in (bwt_forward(data, n) for _ in range(19)))
+        _say("kernel", f"bwt repeats inputs={name} calls=20 differing_slots={differing}")
+        if differing:
+            raise AssertionError(f"bwt_forward gave different outputs on a repeat of {name}")
     before = (suffix_sort.ROUNDS_RUN, suffix_sort.ACTIVE_SORTED, suffix_sort.KERNEL_LAUNCHES,
-              radix.PASS_LAUNCHES)
-    bwt_forward(padded, n0)
+              radix.PASS_LAUNCHES, suffix_sort.PASSES_SKIPPED)
+    _, _, call = suffix_sort.bwt_forward_async(padded, n0)
+    call.finish()
     rounds = suffix_sort.ROUNDS_RUN - before[0]
     active = suffix_sort.ACTIVE_SORTED - before[1]
     launches = (suffix_sort.KERNEL_LAUNCHES - before[2]) + (radix.PASS_LAUNCHES - before[3])
+    skipped = suffix_sort.PASSES_SKIPPED - before[4]
+    # each round's lists: round 0 all n0 rotations through the passes, then
+    # the record's next active and next large counts
+    words = call.rows[0]["words"]
+    large = [n0] + [int(w[3]) for w in words[:-1]]
+    small = [0] + [int(w[0] - w[3]) for w in words[:-1]]
     ms = _cuda_ms(lambda: bwt_forward(padded, n0), 20)
     plain_ms = _cuda_ms(lambda: bwt_forward_ref(padded, n0), 5)
     # what a BWT of these bytes needs, whatever the algorithm: the block read
     # and the column and key written once, against the n log2 n compares of
     # a comparison sort of its rotations
     bound = _bound(n0 + N + 8, n0 * math.log2(n0))
-    # what this formulation moves on this block: per active rotation and
-    # round, its key built (the list entry and two ranks read, 20 bytes; in
-    # round 0 five block bytes), each radix pass (16 bytes), the re-rank's
-    # two reads of the sorted key and its writes of rank, sa and the next
-    # list (28 bytes); then the last column (sa and the block read, the
-    # column written); one operation a key and pass
+    # what this formulation moves on this block: per member of a large
+    # class and round, its key built (the list entry and a rank read, the
+    # key written, 16 bytes; in round 0 five block bytes) and each radix
+    # pass run (16 bytes); per member of a small class, its entry and two
+    # ranks read and its key written (20 bytes); per active rotation, the
+    # re-rank's two reads of the sorted key and its writes of rank, sa and
+    # the next list (28 bytes); then the last column (sa and the block
+    # read, the column written); one operation a key and pass (every pass
+    # counted, the skipped ones too: the record counts them a call)
     passes = suffix_sort.call_sizes(n0)[3]
-    formulation = _bound(active * (20 + 16 * passes + 28) + 5 * n0 + N + 8, active * passes)
+    pass_keys = sum(large) * passes
+    formulation = _bound(sum(large) * 16 + pass_keys * 16 + sum(small) * 20 + active * 28
+                         + 5 * n0 + N + 8, pass_keys + sum(small) * 4)
     parts = {
-        "bwt_keys": _bound(active * 20, active * passes),
+        "bwt_keys": _bound(sum(large) * 16, sum(large) * passes),
         "radix_pass_full_width": _bound(16 * n0, n0),
+        "bwt_small_sort": _bound(sum(small) * 20, sum(small) * 4),
         "bwt_rank_tiles+bwt_rank_apply": _bound(active * 28, active),
         "bwt_last_column": _bound(5 * n0 + N + 8, N),
     }
     _say("kernel", f"bwt N={N} n={n0} kernel_ms={ms} plain_ms={plain_ms} rounds={rounds} "
-            f"active_rotations_sorted={active} launches_per_call={launches} calls_per_block=1 "
+            f"active_rotations_sorted={active} large_by_round={large} small_by_round={small} "
+            f"radix_passes_skipped={skipped} launches_per_call={launches} calls_per_block=1 "
             f"bound_us={bound[0] * 1e3} bound_by={bound[1]} (any algorithm) "
             f"this_formulation_bound_us={formulation[0] * 1e3} "
             f"this_formulation_bound_by={formulation[1]} "
@@ -734,13 +800,16 @@ def bwt_kernels(padded, n0, edges):
 
 
 def radix_kernels(padded, n0, rng):
-    """The radix sort against its plain version on the card, exactly:
-    random 60-bit keys at n = 900,000 and the keys of the corpus block's
-    doubling rounds 0 (all 900,000 rotations) and 1 (the BWT's own keys:
-    bits 20-59 sorted, the position below). Then on round 0's keys the
+    """The radix sort against its plain version on the card, exactly, and
+    20 calls of it equal: random 60-bit keys at n = 900,000 and the keys of
+    the corpus block's doubling rounds 0 (all 900,000 rotations), 1 and 3
+    (the BWT's own keys: bits 20-59 sorted, the position below; classes of
+    mixed sizes) and of the near-periodic block's round 5 (a few huge
+    classes). Then on round 0's keys the
     kernel's ms, the plain version's, torch.sort's (the yardstick, never
     called by the port), the launches of one call and the bound: the keys
     read once and written once, one operation a key and pass."""
+    from tpubz_torch.corpus import edge_blocks
     from tpubz_torch.kernels import radix, suffix_sort
 
     lo, hi = suffix_sort.KEY_LO, suffix_sort.KEY_HI
@@ -749,10 +818,13 @@ def radix_kernels(padded, n0, rng):
         raise AssertionError(f"the library's {bits}-bit digits are not the plain version's "
                              f"{radix.DIGIT_BITS} or not the BWT's")
     block = padded[:n0]
+    near = torch.frombuffer(bytearray(edge_blocks()["near_periodic"]), dtype=torch.uint8)
     inputs = {
         "random60": torch.from_numpy(rng.integers(0, 1 << 60, n0, dtype=np.int64)).to(padded.device),
         "round0_block0": suffix_sort.round_keys(block, 0),
         "round1_block0": suffix_sort.round_keys(block, 1),
+        "round3_block0": suffix_sort.round_keys(block, 3),
+        "round5_near_periodic": suffix_sort.round_keys(near.to(padded.device), 5),
     }
     err = 0
     for name, keys in inputs.items():
@@ -766,6 +838,11 @@ def radix_kernels(padded, n0, rng):
                 f"digit_bits={bits} mismatches={mismatches} max_abs_err={e} tolerance=0")
         if mismatches:
             raise AssertionError(f"radix_sort disagrees with its plain version on {name}")
+        # the look-back's races: 19 repeats, every key equal to the first
+        differing = sum(int((radix.radix_sort(keys, lo, hi) != got).sum()) for _ in range(19))
+        _say("kernel", f"radix repeats inputs={name} calls=20 differing_slots={differing}")
+        if differing:
+            raise AssertionError(f"radix_sort gave different outputs on a repeat of {name}")
     keys = inputs["round0_block0"]
     n = keys.numel()
     before = radix.PASS_LAUNCHES
@@ -1517,11 +1594,16 @@ def stage_bwt(tpubz_torch, data, stream):
         raise AssertionError("the bwt stage's stream differs from the full stage's")
     if st["stage"] != "bwt" or st["dev_blocks"] != st["blocks"]:
         raise AssertionError(f"not a device-only bwt stream: {st}")
-    if (suffix_sort.LAUNCHES != st["blocks"] or radix.SORTS != suffix_sort.ROUNDS_RUN
+    n_passes = suffix_sort.call_sizes(1)[3]
+    if (suffix_sort.LAUNCHES != st["blocks"]
+            or not st["blocks"] <= radix.SORTS <= suffix_sort.ROUNDS_RUN
+            or radix.PASS_LAUNCHES != n_passes * suffix_sort.ROUNDS_RUN
+            or suffix_sort.PASSES_RUN + suffix_sort.PASSES_SKIPPED != n_passes * radix.SORTS
             or bitonic.PASS_LAUNCHES):
-        raise AssertionError(f"{suffix_sort.LAUNCHES} BWT calls, {radix.SORTS} radix sorts in "
-                             f"{suffix_sort.ROUNDS_RUN} rounds, {bitonic.PASS_LAUNCHES} bitonic "
-                             f"launches for {st['blocks']} blocks")
+        raise AssertionError(f"{suffix_sort.LAUNCHES} BWT calls, {radix.SORTS} radix sorts "
+                             f"({radix.PASS_LAUNCHES} pass launches, {suffix_sort.PASSES_RUN} "
+                             f"run) in {suffix_sort.ROUNDS_RUN} rounds, "
+                             f"{bitonic.PASS_LAUNCHES} bitonic launches for {st['blocks']} blocks")
     if mtf.LAUNCHES or rle2.LAUNCHES:
         raise AssertionError(f"{mtf.LAUNCHES} MTF and {rle2.LAUNCHES} RLE2 launches on the bwt stage")
     mb = len(data) / 1e6

@@ -104,7 +104,7 @@ def test_every_entry_point_passes_pointers_as_void_p():
                                                ctypes.c_longlong, ints, P]
     assert _build.SIGNATURES["tpubz_rle2_compact"] == [P, I, I, P, P, P, P, P, P, P, P,
                                                        ctypes.c_longlong, ints, P]
-    assert _build.SIGNATURES["tpubz_bwt_forward"] == [P, I, I, P, I, P, P, P, ints, P]
+    assert "tpubz_bwt_forward" not in _build.SIGNATURES  # the batch of one row
     assert _build.SIGNATURES["tpubz_bwt_sizes"] == [I, ints]
     assert _build.SIGNATURES["tpubz_radix_sort"] == [P, P, I, I, I, P, I, ints, P]
     assert _build.SIGNATURES["tpubz_radix_sizes"] == [I, ints]
@@ -127,12 +127,14 @@ def test_every_entry_point_is_defined_in_csrc():
 def test_batch_entry_points_pass_pointers_as_void_p():
     """The multi-process path's entry points: device pointers and the stream
     as c_void_p, host int arrays as int pointers, the batched BWT's scratch
-    size as a long long (B rows of ~30 MB pass 2^31 bytes)."""
+    size as a long long (B rows of ~30 MB pass 2^31 bytes); the BWT's
+    least n that takes rounds and round cap as ints."""
     import ctypes
 
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     ints = ctypes.POINTER(ctypes.c_int)
-    assert _build.SIGNATURES["tpubz_bwt_forward_batch"] == [P, ints, I, I, P, L, P, P, P, ints, P]
+    assert _build.SIGNATURES["tpubz_bwt_forward_batch"] == [P, ints, I, I, I, I, P, L, P, P, P, ints,
+                                                            P]
     assert _build.SIGNATURES["tpubz_bwt_batch_sizes"] == [ints, I, ctypes.POINTER(L)]
     assert _build.SIGNATURES["tpubz_mtf_ranks_batch"] == [P, P, I, I, I, P, P, P, P]
     assert _build.SIGNATURES["tpubz_rle2_batch"] == [P, P, I, I, P, P, P, P, P, P, L, ints, P]

@@ -407,8 +407,9 @@ def test_bwt_forward_on_card_matches_cpu(cuda, case, tpubz_native):
     """bwt_forward on the card (one library call: the doubling rounds on the
     radix sort of csrc/radix.cuh) gives the key and last column of the plain
     version on the card and of tpubz's native BWT, pad lanes zero, with one
-    counted call, a radix sort per round run and no bitonic sort; small
-    cases also equal the plain version on the CPU."""
+    counted call, a radix sort in round 0 and in each later round whose
+    large list was not empty, as the card counted them, and no bitonic
+    sort; small cases also equal the plain version on the CPU."""
     from tpubz_torch.kernels import bitonic, radix, suffix_sort
 
     c = _bwt_case(case)
@@ -417,12 +418,13 @@ def test_bwt_forward_on_card_matches_cpu(cuda, case, tpubz_native):
     data[: len(c)] = torch.frombuffer(bytearray(c), dtype=torch.uint8)
     on_card = data.to(cuda)
     before = (suffix_sort.LAUNCHES, suffix_sort.ROUNDS_RUN, radix.SORTS, dict(bitonic.CALLS))
-    key, last = bwt_forward(on_card, len(c))
-    torch.cuda.synchronize()
+    key, last, call = suffix_sort.bwt_forward_async(on_card, len(c))
+    call.finish()
     rounds = suffix_sort.ROUNDS_RUN - before[1]
     assert suffix_sort.LAUNCHES == before[0] + 1
     assert 1 <= rounds <= suffix_sort.call_sizes(len(c))[2]
-    assert radix.SORTS == before[2] + rounds and bitonic.CALLS == before[3]
+    large_rounds = 1 + sum(int(w[3] > 0) for w in call.rows[0]["words"][:-1])
+    assert radix.SORTS == before[2] + large_rounds and bitonic.CALLS == before[3]
     assert key.device.type == "cuda" and key.dtype == torch.int64 and key.dim() == 0
     rkey, rlast = suffix_sort.bwt_forward_ref(on_card, len(c))
     assert int(key) == int(rkey) and torch.equal(last, rlast)
@@ -531,6 +533,118 @@ def test_bwt_forward_two_threads_two_encoders(cuda):
     for res in got:
         for i, (key, last) in res.items():
             assert key == want[i][0] and np.array_equal(last, want[i][1])
+
+
+def _card_block(name, cuda):
+    blk = mixed_corpus(1, 5)[:900_000] if name == "corpus" else edge_blocks()[name]
+    data = torch.zeros(900_096, dtype=torch.uint8, device=cuda)
+    data[: len(blk)] = torch.frombuffer(bytearray(blk), dtype=torch.uint8).to(cuda)
+    return data, len(blk)
+
+
+def test_bwt_call_returns_before_the_card_and_finishes_at_the_fetch(cuda):
+    """The encoder's BWT call returns once its last column is enqueued, with
+    no host wait inside it: it is counted as enqueued, and its rounds are
+    counted, and its buffers released, when the block's own fetch has
+    waited on the stream."""
+    from tpubz_torch.kernels import suffix_sort
+
+    blk = np.frombuffer(mixed_corpus(1, 6)[:900_000], np.uint8)
+    enc = DeviceBlockEncoder(9, cuda)
+    want = bwt_forward(enc.upload(blk), blk.size)
+    before = (suffix_sort.ROUNDS_RUN, suffix_sort.LAUNCHES, suffix_sort.HOST_US["wait"])
+    with torch.cuda.stream(enc.stream):
+        out = enc.transform_bwt(blk)
+        assert out.bwt.rows is None
+        assert (suffix_sort.ROUNDS_RUN, suffix_sort.LAUNCHES) == (before[0], before[1] + 1)
+        key, last = enc.fetch_bwt(out)
+    assert out.bwt.rows is not None and out.bwt.rows[0]["rounds"] >= 2
+    assert suffix_sort.ROUNDS_RUN > before[0] and suffix_sort.HOST_US["wait"] == before[2]
+    assert key == int(want[0]) and np.array_equal(last, want[1][: blk.size].cpu().numpy())
+
+
+def test_a_fetch_finishes_only_its_own_blocks_bwt_call(cuda):
+    """Two encoders on two streams, both calls passed by the card: the
+    first fetch finishes its own block's BWT call and counts its rounds
+    only; the other call stays unfinished until its own fetch."""
+    from tpubz_torch.kernels import suffix_sort
+
+    blk = np.frombuffer(mixed_corpus(1, 7)[:900_000], np.uint8)
+    a, b = DeviceBlockEncoder(9, cuda), DeviceBlockEncoder(9, cuda)
+    with torch.cuda.stream(b.stream):
+        out_b = b.transform_bwt(blk)
+    with torch.cuda.stream(a.stream):
+        out_a = a.transform_bwt(blk)
+    torch.cuda.synchronize()
+    rounds = suffix_sort.ROUNDS_RUN
+    with torch.cuda.stream(a.stream):
+        key_a, last_a = a.fetch_bwt(out_a)
+    assert out_b.bwt.done() and out_b.bwt.rows is None
+    assert suffix_sort.ROUNDS_RUN == rounds + out_a.bwt.rows[0]["rounds"]
+    with torch.cuda.stream(b.stream):
+        key_b, last_b = b.fetch_bwt(out_b)
+    assert suffix_sort.ROUNDS_RUN == rounds + 2 * out_a.bwt.rows[0]["rounds"]
+    assert key_a == key_b and np.array_equal(last_a, last_b)
+
+
+@pytest.mark.parametrize("streams", [1, 2])
+def test_bwt_buffers_live_until_the_stream_passes_the_call(cuda, streams):
+    """Right after a call returns, while the card still runs it behind
+    long work, new pinned and device tensors of its buffers' sizes (on its
+    stream, or on a second stream for a second call) are filled: the
+    call's record and outputs are the plain version's, and no new tensor
+    was written by the card."""
+    from tpubz_torch.kernels import suffix_sort
+
+    long_data, long_n = _card_block("near_periodic", cuda)
+    data, n = _card_block("corpus", cuda)
+    rkey, rlast = suffix_sort.bwt_forward_ref(data, n)
+    nbytes, words, _, _ = suffix_sort.call_sizes(n)
+    side = [torch.cuda.Stream(cuda) for _ in range(streams)]
+    calls, junk, in_flight, held = [], [], [], []
+    for st in side:
+        with torch.cuda.stream(st):
+            held.append(suffix_sort.bwt_forward_async(long_data, long_n)[2])
+            torch.cuda._sleep(100_000_000)  # the card busy for tens of ms
+            key, last, call = suffix_sort.bwt_forward_async(data, n)
+            calls.append((key, last, call))
+            in_flight.append(not call.done())
+            for _ in range(3):
+                pinned = torch.full((words,), -5, dtype=torch.int32, pin_memory=True)
+                dev = torch.full((nbytes,), 7, dtype=torch.uint8, device=cuda)
+                junk.append((pinned, dev))
+    assert all(in_flight)
+    for call in held + [c for _, _, c in calls]:
+        call.finish()
+    torch.cuda.synchronize()
+    for key, last, call in calls:
+        assert int(key) == int(rkey) and torch.equal(last, rlast)
+        assert call.rows[0]["rounds"] >= 2 and call.rows[0]["active"] >= n
+    for pinned, dev in junk:
+        assert bool((pinned == -5).all()) and bool((dev == 7).all())
+
+
+def test_bwt_cap_error_still_raises(cuda):
+    """A round cap below what a block needs (no input reaches the real one)
+    raises from the one-block call, from the batch naming its row, and from
+    the finish of a call left in flight; the next call runs as before."""
+    from tpubz_torch.kernels import suffix_sort
+
+    data, n = _card_block("near_periodic", cuda)
+    with pytest.raises(RuntimeError, match="no fixpoint"):
+        bwt_forward(data, n, cap=3)
+    random = torch.from_numpy(np.random.default_rng(3).integers(0, 256, 900_096, dtype=np.uint8))
+    rows = torch.stack([random.to(cuda), data])  # random bytes stop after two rounds
+    with pytest.raises(RuntimeError, match="row 1"):
+        suffix_sort.bwt_forward_batch(rows, [900_000, n], cap=3)
+    _, _, call = suffix_sort.bwt_forward_async(data, n, cap=3)
+    with pytest.raises(RuntimeError, match="no fixpoint"):
+        call.finish()
+    with pytest.raises(RuntimeError, match="no fixpoint"):
+        call.finish()  # finished once; it raises again
+    key, last = bwt_forward(data, n)
+    rkey, rlast = suffix_sort.bwt_forward_ref(data, n)
+    assert int(key) == int(rkey) and torch.equal(last, rlast)
 
 
 def test_bwt_forward_rejects_what_the_kernels_do_not_take(cuda):

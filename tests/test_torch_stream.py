@@ -236,21 +236,24 @@ def test_bwt_kernel_times_fold_template_arguments():
     other BWT kernel under its own name; other kernels as named."""
     from tpubz_torch.stage_probe import BWT_KERNELS, _by_kernel
 
-    passes = ("void tpubz::radix::(anonymous namespace)::radix_pass("
-              "tpubz::radix::(anonymous namespace)::PassArgs)")
+    passes = "(anonymous namespace)::bwt_pass((anonymous namespace)::Call const*, int)"
     call = {"kernels_us": {passes: 3.0,
-                           "void tpubz::radix::(anonymous namespace)::radix_pass<8>(...)": 4.0,
+                           "void (anonymous namespace)::bwt_pass<8>(...)": 4.0,
                            "void (anonymous namespace)::bwt_keys<8>(...)": 2.0,
+                           "(anonymous namespace)::bwt_small_sort(...)": 1.5,
                            "Memset (Device)": 0.5},
             "kernels_launches": {passes: 5,
-                                 "void tpubz::radix::(anonymous namespace)::radix_pass<8>(...)": 4,
+                                 "void (anonymous namespace)::bwt_pass<8>(...)": 4,
                                  "void (anonymous namespace)::bwt_keys<8>(...)": 1,
+                                 "(anonymous namespace)::bwt_small_sort(...)": 1,
                                  "Memset (Device)": 1}}
     out = _by_kernel(call)
-    assert out["radix_pass"] == {"us": 7.0, "launches": 9}
+    assert out["bwt_pass"] == {"us": 7.0, "launches": 9}
     assert out["bwt_keys"] == {"us": 2.0, "launches": 1}
+    assert out["bwt_small_sort"] == {"us": 1.5, "launches": 1}
     assert out["Memset (Device)"] == {"us": 0.5, "launches": 1}
-    assert "bwt_rank_apply" in BWT_KERNELS and "bwt_last_column" in BWT_KERNELS
+    for name in ("bwt_setup", "bwt_rank_apply", "bwt_round_end", "bwt_last_column"):
+        assert name in BWT_KERNELS
 
 
 def test_union_of_device_intervals():

@@ -9,7 +9,10 @@ tickets, early aggregates and look-back chains interleave as they may on
 the card. Warps, lanes and the keys a thread holds are parameters
 (``Shape``), so that small tiles (16-64 keys) and 4-bit digits make classes
 and digit runs cross many tiles; the card's are 8 warps of 32 lanes, 16 keys
-a thread and 8-bit digits.
+a thread and 8-bit digits. The BWT's rounds run as the card's graph runs
+them: one body a round over every row, the loop's condition set by its last
+kernel, the shared-memory sort of the small classes in chunks of twice the
+radix tile.
 """
 from dataclasses import dataclass, field
 
@@ -22,6 +25,7 @@ AGGREGATE = 1 << COUNT_BITS
 INCLUSIVE = 2 << COUNT_BITS
 FLAG_MASK = 3 << COUNT_BITS
 TAG_SHIFT = 23
+LOOK_BACK = 8  # status words a look-back step reads at once
 MAX_PASSES = 8  # the card's tag stride: 63 bits in 8-bit digits
 # csrc/bwt.cu's
 MAX_LOG2 = 20
@@ -29,7 +33,16 @@ POS_MASK = (1 << MAX_LOG2) - 1
 KEY_LO, KEY_HI = 20, 60
 SEED_BYTES = 5
 MAX_ROUNDS = 24
-PINNED_PER_ROUND = 3
+# the graph body's kernels, in the order of their launch counts
+BODY = ("bwt_keys", "bwt_pass", "bwt_small_sort", "bwt_rank_tiles", "bwt_rank_scan",
+        "bwt_rank_apply", "bwt_round_end")
+KEYS_K, PASS_K, SMALL_K, TILES_K, SCAN_K, APPLY_K, END_K = range(len(BODY))
+# a row's record: rounds, active rotations sorted, skipped passes, cap
+# error, sorts (rounds whose large list was not empty), passes run, then
+# each body kernel's launches (row 0's words; 0 in the other rows)
+PINNED_RECORD = 6
+PINNED_HEAD = PINNED_RECORD + len(BODY)
+PINNED_PER_ROUND = 4  # next active count, classes, split, next large count
 
 
 def tag_of(rnd: int, p: int, stride: int = MAX_PASSES) -> int:
@@ -66,6 +79,12 @@ class Shape:
         return self.rank_threads * self.rank_per
 
     @property
+    def count_max(self):
+        """The largest class of a chunk that the shared-memory sort places by
+        counting (the card's: 64, of a 4096-key tile); above it, passes."""
+        return self.tile // 8
+
+    @property
     def max_passes(self):
         """The tag stride and ticket words a round: 63 bits in these digits
         (the card's 8 covers its 8-bit digits)."""
@@ -78,12 +97,13 @@ class Shape:
 @dataclass
 class Log:
     """What the launches did: tickets taken per pass, CTAs that had work and
-    CTAs launched, look-back spins and steps."""
+    CTAs launched, look-back spins and steps, passes skipped."""
     tickets: list = field(default_factory=list)
     working: list = field(default_factory=list)
     launched: list = field(default_factory=list)
     spins: int = 0
     lookback_steps: int = 0
+    skips: int = 0
 
 
 def run_grid(ctas, rng, resident: int = 6) -> None:
@@ -111,14 +131,24 @@ def _digit(keys, shift, width):
     return (keys >> shift) & ((1 << width) - 1)
 
 
-def _warp_add(hist_row, digits, valid):
-    """hist_add's warp aggregation: per warp row of lanes, the lowest lane
-    of each set of equal digits adds the set's size. digits, valid:
-    (warps, lanes)."""
-    peers = digits[:, :, None] == digits[:, None, :]
-    first = np.argmax(peers, axis=2) == np.arange(digits.shape[1])[None, :]
-    lead = valid & first
-    np.add.at(hist_row, digits[lead], peers.sum(2)[lead])
+def _hist_add(hist_row, digits, valid):
+    """hist_add: one shared atomic a valid key and digit (order-free)."""
+    np.add.at(hist_row, digits[valid], 1)
+
+
+def _rank_warp(digits, valid, counters):
+    """A warp's ranking of one row of lanes (digit_peers: the lanes with an
+    equal digit; the lowest of them advances the warp's counter): each
+    valid lane's index among the warp's keys of its digit so far, in lane
+    order. digits, valid: (lanes,); counters: the warp's, updated."""
+    peers = (digits[:, None] == digits[None, :]) & valid[None, :]
+    below = np.tri(len(digits), len(digits), -1, dtype=bool)  # [lane, l]: l < lane
+    prior = np.where(valid, counters[np.maximum(digits, 0)], 0)
+    pos = prior + (peers & below).sum(1)
+    lead = valid & (np.argmax(peers, axis=1) == np.arange(len(digits)))
+    for lane in np.nonzero(lead)[0]:
+        counters[digits[lane]] = prior[lane] + peers[lane].sum()
+    return pos
 
 
 def histogram_cta(bid, keys_of, m, shape, lo, hi, hist, log):
@@ -138,8 +168,7 @@ def histogram_cta(bid, keys_of, m, shape, lo, hi, hist, log):
         key[valid] = keys_of(q[valid])
         for p, (shift, width) in enumerate(passes_of(lo, hi, D)):
             d = np.where(valid, _digit(key, shift, width), -1)
-            _warp_add(s_hist[p], d.reshape(shape.warps, shape.lanes),
-                      valid.reshape(shape.warps, shape.lanes))
+            _hist_add(s_hist[p], d, valid)
     yield
     hist += s_hist[: hist.shape[0]]
 
@@ -168,16 +197,9 @@ def pass_cta(bid, a, shape, log):
     d = np.where(valid, _digit(key, shift, width), -1)
     warp = np.zeros((W, bins), np.int64)
     pos = np.zeros((W, K, L), np.int64)
-    below = np.tri(L, L, -1, dtype=bool)  # [lane, l]: l < lane
-    for j in range(K):
-        dj = d[:, j, :]
-        peers = dj[:, :, None] == dj[:, None, :]
-        vj = valid[:, j, :]
-        prior = np.where(vj, warp[np.arange(W)[:, None], np.maximum(dj, 0)], 0)
-        lead = vj & (np.argmax(peers, axis=2) == np.arange(L)[None, :])
-        for w, lane in zip(*np.nonzero(lead)):
-            warp[w, dj[w, lane]] = prior[w, lane] + peers[w, lane].sum()
-        pos[:, j, :] = prior + (peers & below[None]).sum(2)
+    for w in range(W):
+        for j in range(K):
+            pos[w, j] = _rank_warp(d[w, j], valid[w, j], warp[w])
     total = warp.sum(0)
     warp_before = np.cumsum(warp, 0) - warp  # in place on the card
     for b in range(bins):
@@ -187,16 +209,25 @@ def pass_cta(bid, a, shape, log):
     for b in range(bins):
         excl, t = 0, tile - 1
         while t >= 0:
-            word = int(status[t * bins + b])
-            if word >> TAG_SHIFT != tag or word & FLAG_MASK == 0:
-                log.spins += 1
-                yield
-                continue
-            log.lookback_steps += 1
-            excl += word & COUNT_MASK
-            if word & FLAG_MASK == INCLUSIVE:
+            # LOOK_BACK words read at once; the walk goes on from the first
+            # not yet published, or past the batch
+            words = [int(status[(t - k) * bins + b]) for k in range(min(LOOK_BACK, t + 1))]
+            done = False
+            for k, word in enumerate(words):
+                if word >> TAG_SHIFT != tag or word & FLAG_MASK == 0:
+                    log.spins += 1
+                    break
+                log.lookback_steps += 1
+                excl += word & COUNT_MASK
+                if word & FLAG_MASK == INCLUSIVE:
+                    done = True
+                    break
+            else:
+                k = len(words)
+            if done:
                 break
-            t -= 1
+            t -= k
+            yield
         if tile > 0:
             status[tile * bins + b] = (tag << TAG_SHIFT) | INCLUSIVE | (excl + int(total[b]))
         before[b] = excl
@@ -279,17 +310,18 @@ def seed_key(block, i):
     return (packed << MAX_LOG2) | int(i)
 
 
-def load_flags(skey, base, m, rnd, per):
-    """load_flags: head, class start and active of one thread's keys."""
+def load_flags(skey, base, m, rnd, per, ml):
+    """load_flags: head, class start and active of one thread's keys (m in
+    all, the large list's first ml: key ml is a head and a class start)."""
     gshift = 2 * MAX_LOG2 if rnd > 0 else 63
     idx = base + np.arange(per)
     ok = idx < m
     key = np.where(ok, skey[np.minimum(idx, max(m - 1, 0))], 0)
     prev = np.concatenate([[skey[base - 1] if 0 < base <= m else 0], key[:-1]])
-    head = ok & ((idx == 0) | ((key >> KEY_LO) != (prev >> KEY_LO)))
-    start = ok & ((idx == 0) | ((key >> gshift) != (prev >> gshift)))
+    head = ok & ((idx == 0) | (idx == ml) | ((key >> KEY_LO) != (prev >> KEY_LO)))
+    start = ok & ((idx == 0) | (idx == ml) | ((key >> gshift) != (prev >> gshift)))
     if base + per < m:
-        head_next = (skey[base + per] >> KEY_LO) != (key[-1] >> KEY_LO)
+        head_next = base + per == ml or (skey[base + per] >> KEY_LO) != (key[-1] >> KEY_LO)
     else:
         head_next = True
     nxt = np.concatenate([(idx[1:] >= m) | head[1:], [head_next]])
@@ -297,75 +329,308 @@ def load_flags(skey, base, m, rnd, per):
     return key, head, start, active
 
 
-def rank_tiles_cta(bid, skey, m, rnd, shape, agg):
+NONE = 0x7FFFFFFF  # no head: the first head's identity under min
+
+
+class Row:
+    """One row's scratch as the card keeps it: torch.empty garbage where the
+    call does not zero, the zeroed words where it does."""
+
+    def __init__(self, c: bytes, shape: "Shape", cap: int, min_n: int, slots: int, index: int):
+        self.index = index  # the row's grid index y
+        self.block = np.frombuffer(c, np.uint8)
+        n = self.n = self.block.size
+        self.cap = cap
+        self.live_ever = n >= min_n and n >= 1
+        m = max(n, 1)
+        bins = 1 << shape.digit_bits
+        P = len(passes_of(KEY_LO, KEY_HI, shape.digit_bits))
+        self.keys = [np.full(m, -3, np.int64), np.full(m, -3, np.int64)]
+        self.rank = np.full(m, -7, np.int64)
+        self.sa = np.full(m, -7, np.int64)
+        self.act_large = [np.full(m, -9, np.int64), np.full(m, -9, np.int64)]
+        self.act_small = [np.full(m, -9, np.int64), np.full(m, -9, np.int64)]
+        self.chunk = np.full(m // shape.tile + 2, -13, np.int64)
+        self.agg = np.full((6, -(-m // shape.rank_tile)), -11, np.int64)
+        self.scan = None  # bwt_rank_scan's per-tile words
+        # the rank of each large class by ordinal, a table a round parity
+        self.table = [np.full(256, -17, np.int64), np.full(256, -17, np.int64)]
+        # the words zeroed once per call
+        self.m_large = np.zeros(MAX_ROUNDS + 1, np.int64)
+        self.m_small = np.zeros(MAX_ROUNDS + 1, np.int64)
+        self.done = np.zeros(MAX_ROUNDS, np.int64)
+        self.sel = np.zeros((MAX_ROUNDS, shape.max_passes + 1), np.int64)
+        self.finished = self.rounds = self.active = self.skipped = self.error = 0
+        self.sorts = self.passes_run = 0
+        self.launched = np.zeros(len(BODY), np.int64)  # row 0's: each body kernel's launches
+        # every row's at the longest row's size and round cap (one stride)
+        self.tickets = np.zeros((slots, shape.max_passes), np.int64)
+        self.hist = np.zeros((slots, P, bins), np.int64)
+        self.status = np.zeros(shape.tiles(m) * bins, np.int64)
+        self.pinned = np.full(PINNED_HEAD + PINNED_PER_ROUND * MAX_ROUNDS, -99, np.int64)
+
+    def live(self, R):
+        return self.live_ever and not self.finished and R < self.cap
+
+    def lists(self, R):
+        """(m_large, m_small) of round R (round 0: all n rotations, one class)."""
+        if not self.live(R):
+            return 0, 0
+        return (self.n, 0) if R == 0 else (int(self.m_large[R]), int(self.m_small[R]))
+
+    def snapshot(self):
+        return [x.copy() for x in (self.keys[0], self.keys[1], self.rank, self.sa,
+                                   self.act_large[0], self.act_large[1], self.act_small[0],
+                                   self.act_small[1], self.chunk, self.agg, self.table[0],
+                                   self.table[1], self.m_large,
+                                   self.m_small, self.done, self.sel, self.tickets, self.hist,
+                                   self.status, self.pinned)]
+
+
+def count_launch(row, bid, k):
+    """CTA (0, 0) of body kernel k counts the launch in row 0's words, before
+    any gate."""
+    if bid == 0 and row.index == 0:
+        row.launched[k] += 1
+
+
+def keys_cta(bid, row, R, shape, log):
+    """bwt_keys: the large list's keys (all n rotations in round 0) into key
+    buffer 0, and the round's histogram; a later round's key carries its
+    class's ordinal in bits 40-47."""
+    count_launch(row, bid, KEYS_K)
+    m, _ = row.lists(R)
+    n = row.n
+    if bid == 0 and m > 0:
+        row.sorts += 1
+
+    def keys_of(q):
+        h = (SEED_BYTES << (R - 1)) % n if R > 0 else 0
+        if R == 0:
+            k = np.array([seed_key(row.block, i) for i in q], np.int64)
+        else:  # the large list's entry: i | its class's ordinal << 20
+            e = row.act_large[R & 1][q]
+            i = e & POS_MASK
+            k = ((e >> MAX_LOG2) << (2 * MAX_LOG2)) | (row.rank[_wrap(i, h, n)] << MAX_LOG2) | i
+        row.keys[0][q] = k
+        return k
+
+    yield from histogram_cta(bid, keys_of, m, shape, KEY_LO, KEY_HI, row.hist[R], log)
+
+
+def bwt_pass_cta(bid, row, R, p, shape, log):
+    """bwt_pass: pass p of the large list's sort, from the buffer sel[p]
+    names into the other, or skipped when one digit holds every key."""
+    count_launch(row, bid, PASS_K)
+    m, _ = row.lists(R)
+    if bid >= shape.tiles(m):
+        return
+        yield
+    frm = int(row.sel[R, p])
+    skip = bool((row.hist[R, p] == m).any())
+    if bid == 0:
+        row.sel[R, p + 1] = frm if skip else 1 - frm
+        row.skipped += int(skip)
+        row.passes_run += int(not skip)
+    if skip:
+        log.skips += 1
+        return
+    shift, width = passes_of(KEY_LO, KEY_HI, shape.digit_bits)[p]
+    a = {"in": row.keys[frm], "out": row.keys[1 - frm], "shift": shift, "width": width,
+         "hist": row.hist[R, p], "status": row.status, "tickets": row.tickets[R], "pass": p,
+         "tag": tag_of(R, p, shape.max_passes), "m": m}
+    yield from pass_cta(bid, a, shape, log)
+
+
+# the shared-memory sort's passes over the chunk's local key (class start
+# in the chunk << 40 | rank[(i + h) mod n] << 20 | i): the card's digits
+SMALL_PASSES = [(20, 8), (28, 8), (36, 8), (44, 9)]
+LOW40 = (1 << 40) - 1
+
+
+def small_sort_cta(k, row, R, shape, log):
+    """bwt_small_sort: chunk k of the small list, in shared memory, by warps
+    of `lanes` lanes, each lane `per` keys (2 * warps warps: a chunk holds
+    up to twice the tile)."""
+    count_launch(row, k, SMALL_K)
+    ml, ms = row.lists(R)
+    T = shape.tile
+    chunks = -(-ms // T)
+    if k >= chunks:
+        return
+        yield
+    log["small_working"][-1] += 1
+    n = row.n
+    h = (SEED_BYTES << (R - 1)) % n
+    begin = int(row.chunk[k])
+    cnt = (int(row.chunk[k + 1]) if k + 1 < chunks else ms) - begin
+    W, L, K = 2 * shape.warps, shape.lanes, shape.per
+    cap = W * L * K
+    assert 0 <= cnt <= min(cap, 2 * T - 1)
+    log["small_counts"][-1].append(cnt)
+    i = row.act_small[R & 1][begin:begin + cnt]
+    g = row.rank[i]
+    r2 = row.rank[_wrap(i, h, n)] if cnt else i
+    starts = np.r_[True, g[1:] != g[:-1]][:cnt]
+    cs = np.maximum.accumulate(np.where(starts, np.arange(cnt), -1)) if cnt else starts
+    smem = (cs.astype(np.int64) << 40) | (r2 << MAX_LOG2) | i
+    yield  # a CTA of the grid in any order: its chunk is its own
+    out = row.keys[int(row.sel[R, len(passes_of(KEY_LO, KEY_HI, shape.digit_bits))])]
+    if cnt and (np.arange(cnt) - cs + 1).max() <= shape.count_max:
+        # each key's place: the keys of its class before it by (r2, entry)
+        log["small_counted"] += 1
+        for x in range(cnt):
+            first, before = int(cs[x]), 0
+            for y in range(first, cnt):
+                if cs[y] != first:
+                    break
+                before += (r2[y], y) < (r2[x], x)
+            out[ml + begin + first + before] = (int(g[x]) << 40) | int(smem[x] & LOW40)
+        return
+    per = -(-cnt // (W * L))  # the chunk spread over every warp
+    x = (np.arange(W)[:, None, None] * per + np.arange(per)[None, :, None]) * L + np.arange(L)
+    valid = x < cnt
+    for shift, width in SMALL_PASSES:
+        key = np.zeros((W, per, L), np.int64)
+        key[valid] = smem[x[valid]]
+        d = np.where(valid, _digit(key, shift, width), -1)
+        warp = np.zeros((W, 1 << width), np.int64)
+        pos = np.zeros((W, per, L), np.int64)
+        for w in range(W):
+            for j in range(per):
+                pos[w, j] = _rank_warp(d[w, j], valid[w, j], warp[w])
+        total = warp.sum(0)
+        if (total == cnt).any():  # one digit holds every key: the order stays
+            log["small_skips"] += 1
+            continue
+        start = np.cumsum(total) - total
+        warp_before = np.cumsum(warp, 0) - warp
+        w_idx = np.broadcast_to(np.arange(W)[:, None, None], x.shape)
+        at = pos[valid] + start[d[valid]] + warp_before[w_idx[valid], d[valid]]
+        nxt = np.full(cnt, -1, np.int64)
+        nxt[at] = key[valid]
+        assert (nxt >= 0).all()
+        smem = nxt
+    out[ml + begin: ml + begin + cnt] = (g << 40) | (smem & LOW40)
+
+
+def rank_tiles_cta(bid, row, R, shape):
+    count_launch(row, bid, TILES_K)
+    ml, ms = row.lists(R)
+    m = ml + ms
     base0 = bid * shape.rank_tile
     if base0 >= m:
         return
         yield
-    vals = np.zeros((shape.rank_threads, 5), np.int64)
+    skey = row.keys[int(row.sel[R, len(passes_of(KEY_LO, KEY_HI, shape.digit_bits))])]
+    vals = np.zeros((shape.rank_threads, 6), np.int64)
     for t in range(shape.rank_threads):
         base = base0 + t * shape.rank_per
-        _, head, start, active = load_flags(skey, base, m, rnd, shape.rank_per)
+        _, head, start, active = load_flags(skey, base, m, R, shape.rank_per, ml)
         idx = base + np.arange(shape.rank_per)
         vals[t] = [idx[start].max(initial=-1), idx[head].max(initial=-1), head.sum(),
-                   start.sum(), active.sum()]
+                   start.sum(), active.sum(), idx[head].min(initial=NONE)]
     yield
-    agg[:, bid] = [vals[:, 0].max(), vals[:, 1].max(), vals[:, 2].sum(), vals[:, 3].sum(),
-                   vals[:, 4].sum()]
+    row.agg[:, bid] = [vals[:, 0].max(), vals[:, 1].max(), vals[:, 2].sum(), vals[:, 3].sum(),
+                       vals[:, 4].sum(), vals[:, 5].min()]
 
 
-def rank_apply_cta(bid, skey, n, m, rnd, shape, agg, rank, sa, act_next, state, pinned, writes):
+def rank_scan_cta(row, R, shape):
+    """bwt_rank_scan, one CTA a row: the tiles' aggregates scanned (per tile
+    the last class start and the last head before it, the first head after
+    it, the members of large and small new classes before it, the large
+    classes that start before it) and the round's state."""
+    count_launch(row, 0, SCAN_K)
+    ml, ms = row.lists(R)
+    m = ml + ms
+    if m == 0:
+        return
+        yield
+    n, T, RT = row.n, shape.tile, shape.rank_tile
+    tiles = -(-m // RT)
+    first_h, last_h, heads, starts_, act = (row.agg[k, :tiles] for k in (5, 1, 2, 3, 4))
+    yield
+    prev = np.r_[-1, np.maximum.accumulate(last_h)[:-1]]
+    nxt = np.minimum(np.r_[np.minimum.accumulate(first_h[::-1])[::-1][1:], NONE], m)
+    large = np.zeros(tiles, np.int64)
+    lh = np.zeros(tiles, np.int64)  # the tile's last head starts a large class
+    for t in range(tiles):
+        b, e = t * RT, min(t * RT + RT, m)
+        if first_h[t] == NONE:
+            large[t] = e - b if nxt[t] - prev[t] > T else 0
+        else:
+            if first_h[t] > b and first_h[t] - prev[t] > T:
+                large[t] += first_h[t] - b
+            if nxt[t] - last_h[t] > T:
+                large[t] += e - last_h[t]
+                lh[t] = 1
+    small = act - large
+    row.scan = {"start_before": np.r_[-1, np.maximum.accumulate(row.agg[0, :tiles])[:-1]],
+                "head_before": prev, "head_after": nxt,
+                "large_before": np.cumsum(large) - large, "small_before": np.cumsum(small) - small,
+                "ordinal": np.cumsum(lh) - lh}
+    active = int(act.sum())
+    split = int(heads.sum() > starts_.sum())
+    row.m_large[R + 1] = large.sum()
+    row.m_small[R + 1] = small.sum()
+    row.done[R] = int(active == 0 or not split)
+    w = PINNED_HEAD + PINNED_PER_ROUND * R
+    row.pinned[w: w + PINNED_PER_ROUND] = [active, n - m + heads.sum(), split, large.sum()]
+
+
+def rank_apply_cta(bid, row, R, shape, writes):
+    count_launch(row, bid, APPLY_K)
+    ml, ms = row.lists(R)
+    m = ml + ms
     base0 = bid * shape.rank_tile
     if base0 >= m:
         return
         yield
-    start_before = agg[0, :bid].max(initial=-1)
-    head_before = agg[1, :bid].max(initial=-1)
-    active_before = agg[4, :bid].sum()
-    if bid == 0:  # no tile before it: the round's state from all of them
-        tiles = -(-m // shape.rank_tile)
-        heads, starts, active = agg[2, :tiles].sum(), agg[3, :tiles].sum(), agg[4, :tiles].sum()
-        split = heads > starts
-        state["m"][rnd + 1] = active
-        state["done"][rnd] = int(active == 0 or not split)
-        pinned[PINNED_PER_ROUND * rnd: PINNED_PER_ROUND * (rnd + 1)] = [active, n - m + heads,
-                                                                        int(split)]
-    flags = [load_flags(skey, base0 + t * shape.rank_per, m, rnd, shape.rank_per)
+    T, RT = shape.tile, shape.rank_tile
+    skey = row.keys[int(row.sel[R, len(passes_of(KEY_LO, KEY_HI, shape.digit_bits))])]
+    sc = row.scan
+    start_before, head_before, head_after = (int(sc[k][bid]) for k in (
+        "start_before", "head_before", "head_after"))
+    large_before, small_before = int(sc["large_before"][bid]), int(sc["small_before"][bid])
+    flags = [load_flags(skey, base0 + t * shape.rank_per, m, R, shape.rank_per, ml)
              for t in range(shape.rank_threads)]
     idxs = [base0 + t * shape.rank_per + np.arange(shape.rank_per) for t in range(shape.rank_threads)]
-    my_start = [i[f[2]].max(initial=-1) for i, f in zip(idxs, flags)]
-    my_head = [i[f[1]].max(initial=-1) for i, f in zip(idxs, flags)]
-    my_active = [int(f[3].sum()) for f in flags]
     yield
-    # per key of the tile (tile index x = thread * rank_per + q): its
-    # position, slot and index in the next active list (-1: it leaves)
-    s_pos = np.zeros(shape.rank_tile, np.int64)
-    s_slot = np.zeros(shape.rank_tile, np.int64)
-    s_out = np.zeros(shape.rank_tile, np.int64)
-    for t in range(shape.rank_threads):
-        first = max(start_before, max(my_start[:t], default=-1))
-        headq = max(head_before, max(my_head[:t], default=-1))
-        out = active_before + sum(my_active[:t])
-        key, head, start, act = flags[t]
-        for q in range(shape.rank_per):
-            idx = int(idxs[t][q])
-            if idx >= m:
-                continue
-            first = idx if start[q] else first
-            headq = idx if head[q] else headq
-            i = int(key[q]) & POS_MASK
-            g = int(key[q]) >> (2 * MAX_LOG2) if rnd > 0 else 0
-            rank[i] = g + headq - first
-            x = t * shape.rank_per + q
-            s_pos[x], s_slot[x] = i, g + idx - first
-            s_out[x] = out if act[q] else -1
-            out += int(act[q])
+    # per key of the tile, in tile order: its new class's head and the
+    # first head past it, from the scans of the threads' runs
+    ok = np.concatenate([i < m for i in idxs])
+    idx = np.concatenate(idxs)[ok]
+    key = np.concatenate([f[0] for f in flags])[ok]
+    head = np.concatenate([f[1] for f in flags])[ok]
+    start = np.concatenate([f[2] for f in flags])[ok]
+    active = np.concatenate([f[3] for f in flags])[ok]
+    first = np.maximum(start_before, np.maximum.accumulate(np.where(start, idx, -1)))
+    headq = np.maximum(head_before, np.maximum.accumulate(np.where(head, idx, -1)))
+    later = np.r_[np.where(head, idx, NONE)[1:], NONE]
+    after = np.minimum(np.minimum.accumulate(later[::-1])[::-1], head_after)
+    size = after - headq
+    is_large = active & (size > T)
+    is_small = active & ~(size > T)
+    out_large = large_before + np.cumsum(is_large) - is_large
+    out_small = small_before + np.cumsum(is_small) - is_small
+    pos = key & POS_MASK
+    g = key >> (2 * MAX_LOG2) if R > 0 else np.zeros_like(key)
+    if R > 0:  # a large-list key carries its class's ordinal
+        g = np.where(idx < ml, row.table[R & 1][np.minimum(g, 255)], g)
+    row.rank[pos] = g + headq - first
+    slot = g + idx - first
+    ordinal = sc["ordinal"][headq // RT]
+    lead = is_large & (idx == headq)
+    row.table[(R + 1) & 1][ordinal[lead]] = (g + headq - first)[lead]
+    for q in range(idx.size):
+        if is_small[q] and out_small[q] % T == 0:
+            os = int(out_small[q])
+            row.chunk[os // T] = os if idx[q] == headq[q] else os - (idx[q] - headq[q]) + size[q]
     yield  # __syncthreads: the tile's keys go out in tile order
-    for x in range(min(shape.rank_tile, m - base0)):
-        sa[s_slot[x]] = s_pos[x]
-        writes[s_slot[x]] += 1
-        if s_out[x] >= 0:
-            act_next[s_out[x]] = s_pos[x]
+    row.sa[slot] = pos
+    np.add.at(writes, slot, 1)
+    row.act_large[(R + 1) & 1][out_large[is_large]] = (pos | (ordinal << MAX_LOG2))[is_large]
+    row.act_small[(R + 1) & 1][out_small[is_small]] = pos[is_small]
 
 
 class NoFixpoint(Exception):
@@ -379,94 +644,108 @@ def round_cap(n: int) -> int:
     return c + 2
 
 
-def emulate_bwt(c: bytes, size: int, shape: Shape, seed: int = 0, cap=None):
-    """tpubz_bwt_forward's call: returns key, last and a record of the run."""
-    block = np.frombuffer(c, np.uint8)
-    n = block.size
-    D, bins = shape.digit_bits, 1 << shape.digit_bits
-    P = len(passes_of(KEY_LO, KEY_HI, D))
-    cap = round_cap(n) if cap is None else cap
+def emulate_batch(rows_c, size: int, shape: "Shape", seed: int = 0, cap=None, min_n: int = 2):
+    """tpubz_bwt_forward_batch's call: (keys, lasts, log). The graph's loop:
+    each iteration launches the round's kernels over every row (grid
+    dimension y), CTAs stepped in a random order; the round's end records
+    each row and decides whether the loop runs again. A row that reaches
+    its cap short of the stop rule raises NoFixpoint(row)."""
     rng = np.random.default_rng(seed)
-    # torch.empty scratch: garbage where the call does not zero
-    keys = [np.full(n, -3, np.int64), np.full(n, -3, np.int64)]
-    rank = np.full(n, -7, np.int64)
-    sa = np.full(n, -7, np.int64)
-    act = [np.full(n, -9, np.int64), np.full(n, -9, np.int64)]
-    agg = np.full((5, -(-n // shape.rank_tile)), -11, np.int64)
-    pinned = np.full(PINNED_PER_ROUND * MAX_ROUNDS, -99, np.int64)
-    # the words zeroed once per call
-    state = {"m": np.zeros(MAX_ROUNDS + 1, np.int64), "done": np.zeros(MAX_ROUNDS, np.int64)}
-    tickets = np.zeros((cap, shape.max_passes), np.int64)
-    hist = np.zeros((cap, P, bins), np.int64)
-    status = np.zeros(shape.tiles(n) * bins, np.int64)
-    log = {"rounds_enqueued": 0, "skipped": 0, "m": [], "rank_before": [], "radix": Log(),
-           "slot_writes": []}
-
-    def enqueue_round(r):
-        log["rounds_enqueued"] += 1
-        m = 0 if r > 0 and state["done"][r - 1] else (state["m"][r] if r > 0 else n)
-        if m == 0:
-            # every CTA of every launch returns at once: nothing is written
-            mem = (keys[0], keys[1], rank, sa, act[0], act[1], agg, pinned, state["m"],
-                   state["done"], tickets, hist, status)
-            before = [x.copy() for x in mem]
-            skip = Log()
-            rtiles = -(-n // shape.rank_tile)
-            a = {"m": 0}
-            ctas = ([histogram_cta(b, None, 0, shape, KEY_LO, KEY_HI, None, skip)
-                     for b in range(shape.tiles(n))]
-                    + [pass_cta(b, a, shape, skip) for b in range(shape.tiles(n))] * P
-                    + [rank_tiles_cta(b, None, 0, r, shape, None) for b in range(rtiles)]
-                    + [rank_apply_cta(b, None, n, 0, r, shape, None, None, None, None, None,
-                                      None, None) for b in range(rtiles)])
-            run_grid(ctas, rng)
-            assert all(np.array_equal(x, y) for x, y in zip(before, mem))
-            log["skipped"] += 1
-            return
-        log["m"].append(int(m))
-        log["rank_before"].append(rank.copy())
-        h = (SEED_BYTES << (r - 1)) % n if r > 0 else 0
-        src = keys[P & 1]
-
-        def keys_of(q):
-            if r == 0:
-                k = np.array([seed_key(block, i) for i in q], np.int64)
-            else:
-                i = act[r & 1][q]
-                k = (rank[i] << (2 * MAX_LOG2)) | (rank[_wrap(i, h, n)] << MAX_LOG2) | i
-            src[q] = k
-            return k
-
-        rl = log["radix"]
-        rl.working.append(0)
-        rl.launched.append(shape.tiles(n))
-        run_grid([histogram_cta(b, keys_of, m, shape, KEY_LO, KEY_HI, hist[r], rl)
-                  for b in range(shape.tiles(n))], rng)
-        emulate_sort(src, KEY_LO, KEY_HI, shape, rng, log=rl, status=status, tickets=tickets[r],
-                     rnd=r, m=m, grid_n=n, hist=hist[r], bufs=keys)
-        rtiles = -(-n // shape.rank_tile)
-        run_grid([rank_tiles_cta(b, keys[0], m, r, shape, agg) for b in range(rtiles)], rng)
-        writes = np.zeros(n, np.int64)
-        run_grid([rank_apply_cta(b, keys[0], n, m, r, shape, agg, rank, sa, act[(r + 1) & 1],
-                                 state, pinned, writes) for b in range(rtiles)], rng)
-        log["slot_writes"].append(writes)
-
-    enqueue_round(0)
-    r = 0
-    while True:
-        ahead = r + 1 < cap
-        if ahead:
-            enqueue_round(r + 1)
-        m_after, _, split = pinned[PINNED_PER_ROUND * r: PINNED_PER_ROUND * (r + 1)]
-        if m_after == 0 or split == 0:
-            break
-        if not ahead:
-            raise NoFixpoint(r)
-        r += 1
-    log.update(rounds=r + 1, rank=rank.copy(), sa=sa.copy(),
-               pinned=pinned[: PINNED_PER_ROUND * (r + 1)].reshape(-1, PINNED_PER_ROUND).copy())
+    rows = []
+    slots = round_cap(max([len(c) for c in rows_c] + [1]))
+    for b, c in enumerate(rows_c):
+        own = round_cap(max(len(c), 1))
+        rows.append(Row(c, shape, own if cap is None or cap >= own else cap, min_n, slots, b))
+    P = len(passes_of(KEY_LO, KEY_HI, shape.digit_bits))
+    log = {"iterations": 0, "radix": Log(), "skips_global": 0, "small_working": [],
+           "small_counts": [], "small_skips": 0, "small_counted": 0, "slot_writes": [[] for _ in rows],
+           "rank_before": [[] for _ in rows], "m_large": [[] for _ in rows],
+           "m_small": [[] for _ in rows], "launched": []}
+    rl = log["radix"]
+    R = 0
+    if any(r.live(0) for r in rows):
+        while True:
+            stopped = [r.snapshot() for r in rows if not r.live(R)]
+            for b, r in enumerate(rows):
+                if r.live(R):
+                    ml, ms = r.lists(R)
+                    log["m_large"][b].append(ml)
+                    log["m_small"][b].append(ms)
+                    log["rank_before"][b].append(r.rank.copy())
+            grid = shape.tiles(size)
+            rl.working.append(0)
+            rl.launched.append(grid * len(rows))
+            run_grid([keys_cta(x, r, R, shape, rl) for r in rows for x in range(grid)], rng)
+            for p in range(P):
+                rl.tickets.append([])
+                rl.working.append(0)
+                rl.launched.append(grid * len(rows))
+                run_grid([bwt_pass_cta(x, r, R, p, shape, rl) for r in rows for x in range(grid)], rng)
+            log["small_working"].append(0)
+            log["small_counts"].append([])
+            run_grid([small_sort_cta(k, r, R, shape, log) for r in rows
+                      for k in range(-(-size // shape.tile))], rng)
+            rtiles = -(-size // shape.rank_tile)
+            run_grid([rank_tiles_cta(x, r, R, shape) for r in rows for x in range(rtiles)], rng)
+            run_grid([rank_scan_cta(r, R, shape) for r in rows], rng)
+            writes = [np.zeros(max(r.n, 1), np.int64) for r in rows]
+            run_grid([rank_apply_cta(x, r, R, shape, writes[b]) for b, r in enumerate(rows)
+                      for x in range(rtiles)], rng)
+            log["launched"].append(("bwt_keys",) + ("bwt_pass",) * P
+                                   + ("bwt_small_sort", "bwt_rank_tiles", "bwt_rank_scan",
+                                      "bwt_rank_apply", "bwt_round_end"))
+            # a row that takes no round this iteration: every launch left at once
+            after = [r.snapshot() for r in rows if not r.live(R)]
+            assert all(np.array_equal(x, y) for s0, s1 in zip(stopped, after)
+                       for x, y in zip(s0, s1))
+            # bwt_round_end: lane b records row b (lane 0 first counts the launch)
+            rows[0].launched[END_K] += 1
+            more = False
+            for b, r in enumerate(rows):
+                if r.live(R):
+                    log["slot_writes"][b].append(writes[b])
+                    r.rounds = R + 1
+                    r.active += r.n if R == 0 else int(r.m_large[R] + r.m_small[R])
+                    if r.done[R]:
+                        r.finished = 1
+                    elif R + 1 >= r.cap:
+                        r.finished = r.error = 1
+                    else:
+                        more = True
+                r.pinned[:PINNED_HEAD] = [r.rounds, r.active, r.skipped, r.error, r.sorts,
+                                          r.passes_run, *r.launched]
+            log["iterations"] += 1
+            R += 1
+            errors = [b for b, r in enumerate(rows) if r.error]
+            if errors:
+                raise NoFixpoint(errors[0])
+            if not more:
+                break
+    log["rows"] = [{"rounds": r.rounds, "rank": r.rank.copy(), "sa": r.sa.copy(),
+                    "record": r.pinned[:PINNED_HEAD].copy(),
+                    "pinned": r.pinned[PINNED_HEAD: PINNED_HEAD + PINNED_PER_ROUND * r.rounds]
+                    .reshape(-1, PINNED_PER_ROUND).copy()} for r in rows]
+    log["skips_global"] = rl.skips
     # bwt_last_column
-    last = np.full(size, 255, np.uint8)  # torch.empty: every lane must be written
-    last[n:] = 0
-    last[:n] = block[np.where(sa == 0, n - 1, sa - 1)]
-    return int(rank[0]), last, log
+    keys = np.zeros(len(rows), np.int64)
+    lasts = np.full((len(rows), size), 255, np.uint8)  # torch.empty: every lane is written
+    for b, r in enumerate(rows):
+        n = r.n
+        lasts[b, n:] = 0
+        if n == 1:
+            lasts[b, 0] = r.block[0]
+        elif n > 1:
+            lasts[b, :n] = r.block[np.where(r.sa == 0, n - 1, r.sa - 1)]
+            keys[b] = r.rank[0]
+    return keys, lasts, log
+
+
+def emulate_bwt(c: bytes, size: int, shape: "Shape", seed: int = 0, cap=None):
+    """tpubz_bwt_forward's call (the batch of one row, which a block of one
+    byte runs too): returns key, last and the run's record, one row's."""
+    keys, lasts, blog = emulate_batch([c], size, shape, seed=seed, cap=cap, min_n=1)
+    row = blog["rows"][0]
+    log = {**blog, **row, "m": [a + b for a, b in zip(blog["m_large"][0], blog["m_small"][0])],
+           "m_large": blog["m_large"][0], "m_small": blog["m_small"][0],
+           "rank_before": blog["rank_before"][0], "slot_writes": blog["slot_writes"][0]}
+    return int(keys[0]), lasts[0], log

@@ -52,7 +52,7 @@ from ..kernels.huffman_dev import chunk_hist, nsel_cap, pack_payload, refine_pas
 from ..kernels.mtf import CHUNK as MTF_CHUNK
 from ..kernels.mtf import mtf_ranks
 from ..kernels.rle2 import rle2_encode_used
-from ..kernels.suffix_sort import bwt_forward
+from ..kernels.suffix_sort import bwt_forward_async
 from ..native import code_lengths_native
 from .emit import emit_block
 
@@ -125,17 +125,33 @@ def payload_tables(sel, codes, lens, tc: int, alpha: int, out_len: int, device):
     return tuple(torch.from_numpy(a).to(device) for a in (sel_pad, codes_pad, lens_pad))
 
 
+class Transformed(tuple):
+    """A transform's device tensors, the tuple they are, with the block's
+    BWT call in flight (``bwt``: a ``suffix_sort.BwtCall``, None on the
+    CPU), which the result's fetch finishes."""
+
+    def __new__(cls, items, bwt):
+        self = super().__new__(cls, items)
+        self.bwt = bwt
+        return self
+
+
 class Pending:
     """Host copies in flight: ``result()`` waits for their event (none on a
-    CPU device) and returns ``finish()``."""
+    CPU device), finishes the block's BWT call (enqueued before the copies
+    on the same stream, so the wait has passed it: its counts are added and
+    a cap error raises here) and returns ``finish()``."""
 
-    def __init__(self, event, finish):
+    def __init__(self, event, finish, bwt=None):
         self._event = event
         self._finish = finish
+        self._bwt = bwt
 
     def result(self):
         if self._event is not None:
             self._event.synchronize()  # releases the GIL while it waits
+        if self._bwt is not None:
+            self._bwt.finish()
         return self._finish()
 
 
@@ -166,22 +182,24 @@ class DeviceBlockEncoder:
     def transform(self, rle1_block: np.ndarray, lean: bool = False):
         """Device tensors of one block: (key, syms, rle2_len, freqs, used),
         or with ``lean`` tpubz's lean 7-tuple (key, syms, rle2_len, used,
-        syms_u8, hi_pos, hi_count) of ``rle2_compact``."""
+        syms_u8, hi_pos, hi_count) of ``rle2_compact``; a ``Transformed``
+        that carries the block's BWT call to the fetch."""
         n = int(rle1_block.size)
-        key, last = bwt_forward(self.upload(rle1_block), n)
+        key, last, call = bwt_forward_async(self.upload(rle1_block), n)
         ranks, used = mtf_ranks(last, n, MTF_CHUNK)
         if lean:
             rle2_len, syms_u8, hi_pos, hi_count, syms = rle2_compact(ranks, n, used)
-            return key, syms, rle2_len, used, syms_u8, hi_pos, hi_count
+            return Transformed((key, syms, rle2_len, used, syms_u8, hi_pos, hi_count), call)
         syms, rle2_len, freqs = rle2_encode_used(ranks, n, used)
-        return key, syms, rle2_len, freqs, used
+        return Transformed((key, syms, rle2_len, freqs, used), call)
 
     def transform_bwt(self, rle1_block: np.ndarray):
         """The bwt-only stage: (key 0-d int64, last uint8[N], n) on the
-        device, the upload and the suffix sort only."""
+        device, the upload and the suffix sort only; a ``Transformed``, as
+        ``transform``'s."""
         n = int(rle1_block.size)
-        key, last = bwt_forward(self.upload(rle1_block), n)
-        return key, last, n
+        key, last, call = bwt_forward_async(self.upload(rle1_block), n)
+        return Transformed((key, last, n), call)
 
     def fetch_async(self, out) -> Pending:
         """Start the host copy of a transform result, of either form;
@@ -207,7 +225,7 @@ class DeviceBlockEncoder:
                 s[260:] != 0,
             )
 
-        return Pending(event, finish)
+        return Pending(event, finish, getattr(out, "bwt", None))
 
     def _fetch_lean_async(self, out) -> Pending:
         """``fetch_async`` of a lean result. The host counts the frequencies
@@ -240,7 +258,7 @@ class DeviceBlockEncoder:
             freqs[eob] += 1
             return key, sy, rl, freqs, used
 
-        return Pending(event, finish)
+        return Pending(event, finish, getattr(out, "bwt", None))
 
     def fetch(self, out):
         """Host copy of a transform result of either form: (key int, syms
@@ -253,7 +271,8 @@ class DeviceBlockEncoder:
         is ``fetch_bwt``'s pair."""
         key, last, n = out
         (h_key, h_last), event = host_copies(self.device, key.view(1), last)
-        return Pending(event, lambda: (int(h_key[0]), h_last[:n].numpy()))
+        return Pending(event, lambda: (int(h_key[0]), h_last[:n].numpy()),
+                       getattr(out, "bwt", None))
 
     def fetch_bwt(self, out):
         """(key int, last uint8[n]) of a ``transform_bwt`` result."""
@@ -341,6 +360,8 @@ class DeviceBlockEncoder:
             if hist is None:
                 hist = chunk_hist(syms_d, rle2_len_d)
             (small,) = self._fetch_now(_small_vector(key_d, rle2_len_d, freqs_d, used_d))
+            if getattr(trans_out, "bwt", None) is not None:
+                trans_out.bwt.finish()  # the wait has passed it, as a fetch's does
             key, rle2_len = int(small[0]), int(small[1])
             freqs, used = small[2:260], small[260:] != 0
             alpha = int(used.sum()) + 2

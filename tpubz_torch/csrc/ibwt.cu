@@ -124,10 +124,9 @@ int enqueue_next(const uint8_t* last, int n, int N, unsigned char* b, const Layo
     if (cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
     ++*launched;
     int64_t* const bufs[2] = {reinterpret_cast<int64_t*>(b + L.sorted), keys};
-    const int rc = enqueue_passes(keys, bufs, kPosBits, kPosBits + kDigitBits, hist,
+    const int rc = enqueue_passes(keys, bufs, n, kPosBits, kPosBits + kDigitBits, hist,
                                   reinterpret_cast<uint32_t*>(b + L.status),
-                                  reinterpret_cast<uint32_t*>(b + L.ticket), 0,
-                                  Gate{nullptr, nullptr}, one_row(n), 1, grid, launched, st);
+                                  reinterpret_cast<uint32_t*>(b + L.ticket), launched, st);
     if (rc != 0) return rc;
   }
   if (N > 0) {

@@ -56,7 +56,6 @@ struct Layout {
 }  // namespace radix
 }  // namespace tpubz
 
-using tpubz::radix::Gate;
 using tpubz::radix::Layout;
 using tpubz::radix::kThreads;
 
@@ -92,9 +91,7 @@ extern "C" int tpubz_radix_sort(const void* keys, void* out, int n, int lo, int 
   if (cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
   ++*launched;
   int64_t* const bufs[2] = {static_cast<int64_t*>(out), reinterpret_cast<int64_t*>(b + L.tmp)};
-  return tpubz::radix::enqueue_passes(in, bufs, lo, hi, hist,
+  return tpubz::radix::enqueue_passes(in, bufs, n, lo, hi, hist,
                                       reinterpret_cast<uint32_t*>(b + L.status),
-                                      reinterpret_cast<uint32_t*>(b + L.tickets), 0,
-                                      Gate{nullptr, nullptr}, tpubz::radix::one_row(n), 1, grid,
-                                      launched, st);
+                                      reinterpret_cast<uint32_t*>(b + L.tickets), launched, st);
 }

@@ -4,12 +4,15 @@
 //
 // Onesweep style: one launch histograms every digit of the keys (the
 // caller's, since the BWT builds its keys in the same launch; hist_add and
-// hist_flush below), then one launch a digit:
+// hist_flush below, one shared atomic a key and digit), then one launch a
+// digit (onesweep_pass; radix_pass when the host knows the arguments, the
+// BWT's own kernel when a device word holds them):
 //   - each CTA takes a tile ticket from an atomic counter, so a tile's
 //     predecessors are held by CTAs that already run (forward progress);
 //   - it ranks its tile's keys by digit in shared memory, warp by warp:
-//     __match_any_sync finds a key's peers, one lane adds their count to
-//     the warp's counter, so equal digits keep their order (stable);
+//     __match_any_sync finds a key's peers (digit_peers), one lane adds
+//     their count to the warp's counter, so equal digits keep their order
+//     (stable);
 //   - it publishes its per-digit counts at once, then finds its global
 //     offsets by decoupled look-back over the earlier tiles' status words
 //     and publishes its inclusive sums;
@@ -18,12 +21,6 @@
 // Status words carry a (round, pass) tag, so the caller zeroes them once per
 // call (torch.empty scratch can hold an earlier call's words) and no pass
 // or round needs them zeroed again.
-//
-// A launch sorts one or more rows, independent sorts side by side: grid
-// dimension y walks a Rows list, and a CTA finds its row's keys, counts,
-// tickets and status words at the row's offset from row 0's (the batched
-// BWT keeps each row's scratch at a fixed stride). A standalone sort is
-// one row at offset 0.
 //
 // What bounds a pass on an H100: each key is read once and written once,
 // 16 bytes a key (14.4 MB at the BWT's 900,000 keys, 4.3 us at 3.35 TB/s;
@@ -54,7 +51,6 @@ constexpr int kMaxPasses = 8;  // 63 bits in 8-bit digits
 // with the same warps and shared memory; PERF.md section 6 keeps the times).
 constexpr int kDigitBits = 8;
 constexpr int kBins = 1 << kDigitBits;
-constexpr uint32_t kInvalid = 0xffffffffu;
 constexpr unsigned kFull = 0xffffffffu;
 
 // A status word: the count in bits 0-20 (at most 2^20 keys), the flag in
@@ -65,6 +61,7 @@ constexpr uint32_t kAggregate = 1u << kCountBits;
 constexpr uint32_t kInclusive = 2u << kCountBits;
 constexpr uint32_t kFlagMask = 3u << kCountBits;
 constexpr int kTagShift = 23;
+constexpr int kLookBack = 8;  // status words a look-back step reads at once
 
 // nonzero, below 2^9 for rounds < 63
 __host__ __device__ constexpr uint32_t tag_of(int round, int pass) {
@@ -81,46 +78,6 @@ __device__ __forceinline__ uint32_t digit_of(int64_t key, int shift, int width) 
   return static_cast<uint32_t>(static_cast<uint64_t>(key) >> shift) & ((1u << width) - 1);
 }
 
-// The rows a launch covers: blockIdx.y's row, its length, and the bytes
-// between two rows' scratch (0 for one row).
-constexpr int kMaxRows = 32;
-struct Rows {
-  int row[kMaxRows];
-  int n[kMaxRows];
-  long long stride;
-};
-
-inline Rows one_row(int n) {
-  Rows r{};
-  r.n[0] = n;
-  return r;
-}
-
-// p moved to this CTA's row (null stays null)
-template <typename T>
-__device__ __forceinline__ T* at_row(T* p, const Rows& r) {
-  if (p == nullptr) return p;
-  return (T*)((char*)p + r.row[blockIdx.y] * r.stride);
-}
-
-// How many keys a launch sorts in a row. The BWT enqueues a round before
-// the host knows that the round before was the last, and before any host
-// knows how many rotations the round has: `done` (null, or a device int:
-// nonzero and the launch has nothing to do) and `count` (null: the row's
-// length; or the device int that holds it), row 0's, are read on the card
-// at the CTA's row.
-struct Gate {
-  const int32_t* done;
-  const int32_t* count;
-};
-
-__device__ __forceinline__ int gated_count(const Gate& g, const Rows& r) {
-  const int32_t* done = at_row(g.done, r);
-  const int32_t* count = at_row(g.count, r);
-  if (done != nullptr && *done != 0) return 0;
-  return count != nullptr ? *count : r.n[blockIdx.y];
-}
-
 __device__ __forceinline__ uint32_t ld_relaxed(const uint32_t* p) {
   uint32_t v;
   asm volatile("ld.relaxed.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
@@ -131,16 +88,24 @@ __device__ __forceinline__ void st_relaxed(uint32_t* p, uint32_t v) {
   asm volatile("st.relaxed.gpu.global.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
 }
 
+// The lanes of the warp whose digit equals this lane's, among the lanes
+// where `valid` holds (an invalid lane's own set is the invalid lanes).
+// __match_any_sync: the ballot a digit bit that the onesweep match of CUB
+// uses was slower on an H100 (PERF.md section 6; bwt_probe's ballot variant), the shared
+// atomics of hist_add are not ordered, and the ranks must keep the order of
+// equal digits.
+__device__ __forceinline__ unsigned digit_peers(uint32_t d, bool valid) {
+  return __match_any_sync(kFull, valid ? d : 0xffffffffu);
+}
+
 // Adds key's digit of each pass over bits [lo, hi) to the CTA's counts,
-// hist[pass << kDigitBits | digit]; lanes with equal digits add once. Every
-// lane of the warp calls it; an invalid lane adds nothing.
+// hist[pass << kDigitBits | digit]: one shared atomic a key and digit (the
+// counts need no order). An invalid key adds nothing.
 __device__ __forceinline__ void hist_add(uint32_t* hist, int64_t key, bool valid, int lo, int hi) {
-  const int lane = threadIdx.x & 31;
+  if (!valid) return;
   int p = 0;
   for (int shift = lo; shift < hi; shift += kDigitBits, ++p) {
-    const uint32_t d = valid ? digit_of(key, shift, min(kDigitBits, hi - shift)) : kInvalid;
-    const unsigned peers = __match_any_sync(kFull, d);
-    if (valid && lane == __ffs(peers) - 1) atomicAdd(&hist[(p << kDigitBits) | d], __popc(peers));
+    atomicAdd(&hist[(p << kDigitBits) | digit_of(key, shift, min(kDigitBits, hi - shift))], 1u);
   }
 }
 
@@ -153,8 +118,8 @@ __device__ __forceinline__ void hist_flush(const uint32_t* s, uint32_t* hist, in
   }
 }
 
-// One pass: keys `in` to `out` by the digit (key >> shift) & (2^width - 1);
-// every pointer is row 0's.
+// One pass of m keys: `in` to `out` by the digit (key >> shift) &
+// (2^width - 1).
 struct PassArgs {
   const int64_t* in;
   int64_t* out;
@@ -164,15 +129,22 @@ struct PassArgs {
   uint32_t* status;      // kBins words per tile, this call's tags or zero
   uint32_t* ticket;      // this pass's tile counter, zero before the launch
   uint32_t tag;
-  Gate gate;
+  int m;
 };
 
 union PassSmem {
-  int64_t keys[kTile];         // the tile in output order
+  int64_t keys[kTile];           // the tile in output order
   uint16_t warp[kWarps][kBins];  // per warp and digit: its keys, then the warps' before
 };
 
-__global__ void __launch_bounds__(kThreads) radix_pass(PassArgs a, Rows rows) {
+// The body of a pass over m keys: the CTA's tile by ticket, its keys
+// ranked warp by warp, the counts published and looked back on, the keys
+// written out through shared memory. Called by every thread of a CTA of
+// kThreads with a tile to sort (blockIdx.x < tiles_of(m)).
+__device__ __forceinline__ void onesweep_pass(const int64_t* __restrict__ in, int64_t* __restrict__ out,
+                                              int shift, int width, const uint32_t* hist,
+                                              uint32_t* status, uint32_t* ticket, uint32_t tag,
+                                              int m) {
   constexpr int kBinsPer = kBins / kThreads;
   static_assert(kBinsPer >= 1 && kBins % kThreads == 0, "a thread owns whole digits");
   __shared__ PassSmem s;
@@ -180,14 +152,7 @@ __global__ void __launch_bounds__(kThreads) radix_pass(PassArgs a, Rows rows) {
   __shared__ int s_delta[kBins];  // its global index less that
   __shared__ int s_tile;
   __shared__ int sh[32];
-  const int m = gated_count(a.gate, rows);
-  if (blockIdx.x >= tiles_of(m)) return;
-  a.in = at_row(a.in, rows);
-  a.out = at_row(a.out, rows);
-  a.hist = at_row(a.hist, rows);
-  a.status = at_row(a.status, rows);
-  a.ticket = at_row(a.ticket, rows);
-  if (threadIdx.x == 0) s_tile = static_cast<int>(atomicAdd(a.ticket, 1u));
+  if (threadIdx.x == 0) s_tile = static_cast<int>(atomicAdd(ticket, 1u));
   for (int x = threadIdx.x; x < kWarps * kBins; x += kThreads) (&s.warp[0][0])[x] = 0;
   __syncthreads();
   const int tile = s_tile;
@@ -197,19 +162,20 @@ __global__ void __launch_bounds__(kThreads) radix_pass(PassArgs a, Rows rows) {
   const unsigned below = (1u << lane) - 1;
 
   // warp w holds tile indices [w * 32 * kPer, (w + 1) * 32 * kPer), the
-  // lanes side by side, and ranks them in index order
+  // lanes side by side, and ranks them in index order: the lowest lane of
+  // each set of equal digits advances the warp's counter
   int64_t key[kPer];
   int pos[kPer];
 #pragma unroll
   for (int j = 0; j < kPer; ++j) {
     const int x = (w * kPer + j) * 32 + lane;
-    key[j] = x < count ? a.in[base + x] : 0;
+    key[j] = x < count ? in[base + x] : 0;
   }
 #pragma unroll
   for (int j = 0; j < kPer; ++j) {
     const bool valid = (w * kPer + j) * 32 + lane < count;
-    const uint32_t d = valid ? digit_of(key[j], a.shift, a.width) : kInvalid;
-    const unsigned peers = __match_any_sync(kFull, d);
+    const uint32_t d = digit_of(key[j], shift, width);
+    const unsigned peers = digit_peers(d, valid);
     const int prior = valid ? s.warp[w][d] : 0;
     __syncwarp();
     if (valid && lane == __ffs(peers) - 1) s.warp[w][d] = static_cast<uint16_t>(prior + __popc(peers));
@@ -232,25 +198,34 @@ __global__ void __launch_bounds__(kThreads) radix_pass(PassArgs a, Rows rows) {
       run += c;
     }
     total[i] = run;
-    st_relaxed(&a.status[tile * kBins + b],
-               (a.tag << kTagShift) | (tile == 0 ? kInclusive : kAggregate) | run);
+    st_relaxed(&status[tile * kBins + b], (tag << kTagShift) | (tile == 0 ? kInclusive : kAggregate) | run);
   }
   // decoupled look-back: add up the earlier tiles' counts of the digit,
-  // back to the first inclusive sum
+  // back to the first inclusive sum, kLookBack words read at once (a tile
+  // not yet published is read again, from it on)
   int before[kBinsPer];
 #pragma unroll
   for (int i = 0; i < kBinsPer; ++i) {
     const int b = threadIdx.x * kBinsPer + i;
     int excl = 0;
     for (int t = tile - 1; t >= 0;) {
-      const uint32_t word = ld_relaxed(&a.status[t * kBins + b]);
-      if ((word >> kTagShift) != a.tag || (word & kFlagMask) == 0) continue;  // not yet
-      excl += static_cast<int>(word & kCountMask);
-      if ((word & kFlagMask) == kInclusive) break;
-      --t;
+      uint32_t word[kLookBack];
+#pragma unroll
+      for (int k = 0; k < kLookBack; ++k) word[k] = t - k >= 0 ? ld_relaxed(&status[(t - k) * kBins + b]) : 0;
+      int k = 0;
+      for (; k < kLookBack && t - k >= 0; ++k) {
+        if ((word[k] >> kTagShift) != tag || (word[k] & kFlagMask) == 0) break;  // not yet
+        excl += static_cast<int>(word[k] & kCountMask);
+        if ((word[k] & kFlagMask) == kInclusive) break;
+      }
+      if (k < kLookBack && t - k >= 0 && (word[k] & kFlagMask) == kInclusive &&
+          (word[k] >> kTagShift) == tag) {
+        break;  // the inclusive sum ended it
+      }
+      t -= k;  // from the first word not yet published, or past the batch
     }
     if (tile > 0) {
-      st_relaxed(&a.status[tile * kBins + b], (a.tag << kTagShift) | kInclusive | (excl + total[i]));
+      st_relaxed(&status[tile * kBins + b], (tag << kTagShift) | kInclusive | (excl + total[i]));
     }
     before[i] = excl;
   }
@@ -259,7 +234,7 @@ __global__ void __launch_bounds__(kThreads) radix_pass(PassArgs a, Rows rows) {
   int hsum = 0, tsum = 0;
 #pragma unroll
   for (int i = 0; i < kBinsPer; ++i) {
-    hsum += static_cast<int>(a.hist[threadIdx.x * kBinsPer + i]);
+    hsum += static_cast<int>(hist[threadIdx.x * kBinsPer + i]);
     tsum += total[i];
   }
   int unused;
@@ -270,14 +245,14 @@ __global__ void __launch_bounds__(kThreads) radix_pass(PassArgs a, Rows rows) {
     const int b = threadIdx.x * kBinsPer + i;
     s_start[b] = trun;
     s_delta[b] = hrun + before[i] - trun;
-    hrun += static_cast<int>(a.hist[b]);
+    hrun += static_cast<int>(hist[b]);
     trun += total[i];
   }
   __syncthreads();
 #pragma unroll
   for (int j = 0; j < kPer; ++j) {
     if ((w * kPer + j) * 32 + lane < count) {
-      const uint32_t d = digit_of(key[j], a.shift, a.width);
+      const uint32_t d = digit_of(key[j], shift, width);
       pos[j] += s_start[d] + s.warp[w][d];
     }
   }
@@ -289,20 +264,25 @@ __global__ void __launch_bounds__(kThreads) radix_pass(PassArgs a, Rows rows) {
   __syncthreads();
   for (int x = threadIdx.x; x < count; x += kThreads) {
     const int64_t k = s.keys[x];
-    a.out[x + s_delta[digit_of(k, a.shift, a.width)]] = k;
+    out[x + s_delta[digit_of(k, shift, width)]] = k;
   }
 }
 
-// Enqueues the passes of one sort by bits [lo, hi): pass p reads `in`
-// (p = 0) or the pass before's output and writes bufs[(passes - 1 - p) & 1],
-// so the last pass writes bufs[0]; `in` may be bufs[passes & 1]. hist: the
-// histogram launch's counts, pass p's at hist + (p << kDigitBits); tickets:
-// one zeroed word a pass. All of them are row 0's. Grid: tiles of the most
-// keys the gate can let through in any row, by `count` rows. Adds its
-// launches to *launched.
-int enqueue_passes(const int64_t* in, int64_t* const bufs[2], int lo, int hi,
-                   const uint32_t* hist, uint32_t* status, uint32_t* tickets, int round, Gate gate,
-                   const Rows& rows, int count, int grid, int* launched, cudaStream_t st) {
+// A pass of a sort whose arguments the host knows (the standalone sort and
+// the inverse BWT's next pointers).
+__global__ void __launch_bounds__(kThreads) radix_pass(PassArgs a) {
+  if (blockIdx.x >= tiles_of(a.m)) return;
+  onesweep_pass(a.in, a.out, a.shift, a.width, a.hist, a.status, a.ticket, a.tag, a.m);
+}
+
+// Enqueues the passes of one sort of n keys by bits [lo, hi): pass p reads
+// `in` (p = 0) or the pass before's output and writes bufs[(passes - 1 -
+// p) & 1], so the last pass writes bufs[0]; `in` may be bufs[passes & 1].
+// hist: the histogram launch's counts, pass p's at hist + (p << kDigitBits);
+// tickets: one zeroed word a pass. Adds its launches to *launched.
+int enqueue_passes(const int64_t* in, int64_t* const bufs[2], int n, int lo, int hi,
+                   const uint32_t* hist, uint32_t* status, uint32_t* tickets, int* launched,
+                   cudaStream_t st) {
   const int passes = passes_of(lo, hi);
   for (int p = 0; p < passes; ++p) {
     const int shift = lo + p * kDigitBits;
@@ -313,9 +293,9 @@ int enqueue_passes(const int64_t* in, int64_t* const bufs[2], int lo, int hi,
                hist + (p << kDigitBits),
                status,
                tickets + p,
-               tag_of(round, p),
-               gate};
-    radix_pass<<<dim3(grid, count), kThreads, 0, st>>>(a, rows);
+               tag_of(0, p),
+               n};
+    radix_pass<<<tiles_of(n), kThreads, 0, st>>>(a);
     if (cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
     ++*launched;
   }

@@ -50,17 +50,15 @@ SIGNATURES = {
     # keys, payload or None, n, plan, len(plan), launched (out), stream
     "tpubz_bitonic_run_i32": [_P, _P, ctypes.c_int, _INTS, ctypes.c_int, _INTS, _P],
     "tpubz_bitonic_run_i64": [_P, _P, ctypes.c_int, _INTS, ctypes.c_int, _INTS, _P],
-    # data, n, N, scratch, its bytes, pinned host int32 words, key, last,
-    # stats (out, 7 ints), stream
-    "tpubz_bwt_forward": [_P, ctypes.c_int, ctypes.c_int, _P, ctypes.c_int, _P, _P, _P, _INTS,
-                          _P],
-    # n, sizes (out, 4 ints: scratch bytes, pinned words, round cap, radix
-    # passes a round)
+    # n, sizes (out, 8 ints: scratch bytes, pinned words, round cap, radix
+    # passes a round, a row's record words, words a round, kernels a round,
+    # kernels a call around the rounds)
     "tpubz_bwt_sizes": [ctypes.c_int, _INTS],
-    # data, ns (host ints), B, N, scratch, its bytes, pinned host int32
-    # words, keys, lasts, stats (out, 8 ints), stream
-    "tpubz_bwt_forward_batch": [_P, _INTS, ctypes.c_int, ctypes.c_int, _P, ctypes.c_longlong, _P,
-                                _P, _P, _INTS, _P],
+    # data, ns (host ints), B, N, least n that takes rounds, round cap (0: each
+    # row's own), scratch, its bytes, pinned host int32 words, keys, lasts,
+    # stats (out, 7 ints), stream
+    "tpubz_bwt_forward_batch": [_P, _INTS, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                _P, ctypes.c_longlong, _P, _P, _P, _INTS, _P],
     # ns (host ints), B, sizes (out, 3 long longs: scratch bytes, pinned
     # words, the most rows a call takes)
     "tpubz_bwt_batch_sizes": [_INTS, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)],

@@ -35,15 +35,24 @@ mixed corpus plus the edge blocks (``tpubz_torch.corpus``, as
   launch on the corpus's first block, from ``torch.profiler``;
 - ``bwt_anatomy`` (alone with ``--mode bwt_anatomy``): of one
   ``bwt_forward`` call on the corpus's first block, the device
-  microseconds and launches of each kernel (``bwt_keys``,
-  ``radix_pass``, ``bwt_rank_tiles``, ``bwt_rank_apply``,
-  ``bwt_last_column``), per round and per radix pass, from
-  ``torch.profiler``; the same for one ``radix_sort`` of the block's
-  900,000 round-0 keys at each width, ``torch.sort`` of them, and one
+  microseconds and launches of each kernel (``bwt_setup``, ``bwt_keys``,
+  ``bwt_pass``, ``bwt_small_sort``, ``bwt_rank_tiles``, ``bwt_rank_scan``,
+  ``bwt_rank_apply``, ``bwt_round_end``, ``bwt_last_column``), per round
+  and per radix pass, and the sort's (``bwt_pass`` and
+  ``bwt_small_sort``), from ``torch.profiler``. The profiler may trace
+  only some iterations of the graph's loop, so the traced launches are
+  held to the call's own count (the body's launches from the card's
+  record, the setup, the last column and the memset): on a shortfall
+  ``complete`` is false and the per-kernel figures are null; the call's
+  span on the card (``span_us``, CUDA events around it behind a sleeping
+  stream, no profiler) is always given; the same for one ``radix_sort`` of the block's
+  900,000 round-0 keys, ``torch.sort`` of them, and one
   ``bitonic_1op``, ``bitonic_2op`` and two-pass ``stage_passes`` call at
   2^20; per block of the data the doubling rounds, the active rotations
-  sorted, the call's ms and the host's microseconds in it (enqueueing
-  rounds, waiting for a round's event); the host ms of the MTF and RLE2
+  sorted, the call's ms and the host's microseconds in it
+  (``suffix_sort.HOST_US``: enqueueing, building a graph, the library
+  call in all, and the wait for the call's event in ``finish``, which
+  ``bwt_forward`` makes once a call); the host ms of the MTF and RLE2
   stages after the library call and after the plain version; and for one
   device-only stream per stage, with no profiler, the wall, the sum of each
   block's span on the card (CUDA events before its first kernel and after
@@ -100,8 +109,11 @@ from .stream import api
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WINDOWS = (2, 5, 28)
-# the kernels of one bwt_forward call (csrc/bwt.cu, csrc/radix.cuh)
-BWT_KERNELS = ("bwt_keys", "radix_pass", "bwt_rank_tiles", "bwt_rank_apply", "bwt_last_column")
+# the kernels of one bwt_forward call (csrc/bwt.cu, csrc/radix.cuh): the
+# setup, then a round's (the large list's keys, its radix passes, the small
+# list's shared-memory sort, the re-rank, the round's end), then the column
+BWT_KERNELS = ("bwt_setup", "bwt_keys", "bwt_pass", "bwt_small_sort", "bwt_rank_tiles",
+               "bwt_rank_scan", "bwt_rank_apply", "bwt_round_end", "bwt_last_column")
 HYBRID_WINDOWS = (5, 16, 28)
 
 
@@ -357,6 +369,23 @@ def kernel_device_us(fn) -> dict:
             "launches": len(dev), "kernels_us": by_name, "kernels_launches": counts}
 
 
+def _span_us(fn) -> float:
+    """The card's µs from the first operation of one call of fn to its last:
+    CUDA events around it, enqueued behind tens of ms of device work so that
+    the host's enqueueing is hidden; what fn returns is held until the
+    second event is recorded (a BWT call dropped unfinished waits)."""
+    fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    del out
+    return a.elapsed_time(b) * 1e3
+
+
 def chain_profile(mib: int, seed: int) -> dict:
     """Device µs by kernel of one mtf_ranks and one rle2_encode_used call
     (RLE2 as the transform calls it) on the BWT of the corpus's first
@@ -441,16 +470,38 @@ def bwt_anatomy(data: bytes) -> dict:
     n = 900_000
     padded = torch.zeros(block_n(9), dtype=torch.uint8, device="cuda")
     padded[:n] = torch.frombuffer(bytearray(data[:n]), dtype=torch.uint8).to("cuda")
-    before = (suffix_sort.ROUNDS_RUN, suffix_sort.ACTIVE_SORTED)
-    bwt_forward(padded, n)
-    rounds, active = (suffix_sort.ROUNDS_RUN - before[0], suffix_sort.ACTIVE_SORTED - before[1])
-    call = kernel_device_us(lambda: bwt_forward(padded, n))
-    kernels = _by_kernel(call)
-    passes = kernels.get("radix_pass", {"us": 0.0, "launches": 0})
-    block0 = {"rounds": rounds, "active_rotations_sorted": active, "call": call,
-              "by_kernel": kernels, "us_per_round": call["sum_us"] / rounds,
-              "launches_per_round": call["launches"] / rounds,
-              "us_per_radix_pass": passes["us"] / max(passes["launches"], 1)}
+    held = {}
+
+    def one_call():
+        held["call"] = suffix_sort.bwt_forward_async(padded, n)[2]
+        held["call"].finish()
+
+    # the profiler may see every iteration of a graph's loop only if its
+    # tracing had started before the graph was instantiated: start it, then
+    # build the call's graph for a stream of its own (the graphs are per
+    # stream); `complete` says whether it did
+    kernel_device_us(lambda: torch.ones(1, device="cuda").add_(1))
+    with torch.cuda.stream(torch.cuda.Stream()):
+        call = kernel_device_us(one_call)
+    record = held["call"].rows[0]
+    rounds = record["rounds"]
+    # the call's launches as the card (the graph's body) and the host (the
+    # setup, the last column and the memset) counted them
+    counted = sum(record[k] for k in suffix_sort.BODY) + suffix_sort.launch_sizes()[1] + 1
+    block0 = {"rounds": rounds, "active_rotations_sorted": record["active"], "call": call,
+              "launches_counted": counted, "complete": call["launches"] == counted,
+              "span_us": _span_us(lambda: suffix_sort.bwt_forward_async(padded, n))}
+    if block0["complete"]:
+        kernels = _by_kernel(call)
+        passes = kernels.get("bwt_pass", {"us": 0.0, "launches": 0})
+        small = kernels.get("bwt_small_sort", {"us": 0.0, "launches": 0})
+        block0.update({"by_kernel": kernels, "us_per_round": call["sum_us"] / rounds,
+                       "launches_per_round": call["launches"] / rounds,
+                       "us_per_radix_pass": passes["us"] / max(passes["launches"], 1),
+                       "sort_us": passes["us"] + small["us"]})
+    else:
+        block0.update(dict.fromkeys(("by_kernel", "us_per_round", "launches_per_round",
+                                     "us_per_radix_pass", "sort_us")))
     k0 = suffix_sort.round_keys(padded[:n], 0)
     lo, hi = suffix_sort.KEY_LO, suffix_sort.KEY_HI
     k64 = torch.full((1 << 20,), torch.iinfo(torch.int64).max, dtype=torch.int64, device="cuda")
