@@ -44,14 +44,16 @@ before against their plain versions and the one-block kernels on five
 level-9 rows at once) and no one-block kernel; then one rank on the same
 data for its MB/s. The device refine encoder ([devrefine]) encodes
 [path]'s blocks with DeviceBlockEncoder.transform and
-encode_block_devrefine, and again as rows of the batched transform with
-each call's histograms from one chunk_hist_batch launch; both streams must
-equal [path]'s and round-trip, every device refine kernel must have
-launched and no plain version run (its kernels are held first against
-their plain versions: the histograms on the corpus block, the edge blocks,
-the sidecar overflow block and the five batch rows, the refinement pass
-for every table count and a forced tie, the packer on 2^20 seeded fields,
-the payload on each block's final tables). The lean chain ([lean]) runs
+encode_block_devrefine, and again as rows of the batched transform, each
+row's symbols a view into the batch; both streams must equal [path]'s and
+round-trip, refine_pass (one launch a pass, over the block's symbols) and
+the packer must have launched, the histograms (off the refinement's path)
+not, and no plain version run (the kernels are held first against their
+plain versions: the histograms on the corpus block, the edge blocks, the
+sidecar overflow block and the five batch rows, the refinement pass on
+those blocks' symbols for every table count and a forced tie and on each
+batch row, the packer on 2^20 seeded fields, the payload on each block's
+final tables). The lean chain ([lean]) runs
 DeviceBlockEncoder.transform(blk, lean=True) on [path]'s blocks and the
 sidecar overflow block, each fetch equal to the int16 form's field by
 field, and encode_block (which takes the lean chain) on [path]'s blocks,
@@ -59,8 +61,10 @@ spliced, equal to [path]'s stream and round-tripped; rle2_compact must
 have launched on every lean transform and its plain version never. The
 inverse BWT ([ibwt]) runs bwt_inverse_device on every block's (key, last
 column) from transform_bwt, each equal to the RLE1 block, with its next
-pointers and ceil(log2 n) doubling rounds on the card and no plain
-version; it prints its ms a block beside decompress's. Those kernels are
+pointers and the orbit's three kernels on the card (the splitter walks and
+the rank, as the call's record counts them: L the length of p_0's cycle,
+the segments and the longest walk) and no plain version; it prints its ms
+a block beside decompress's. Those kernels are
 held first against their plain versions: rle2_compact on the MTF ranks of
 the corpus block, the edge blocks, the sidecar overflow block and random
 ranks with long zero runs and EOB 257; next_pointers and the inverse on
@@ -92,7 +96,8 @@ ran. The four batched kernels (bwt_batch, mtf_batch, rle2_batch, compact)
 count their calls in the [multihost] phase, both ranks summed; their
 times are at B = 5 level-9 rows. The five device refine rows (chunk_hist,
 chunk_hist_batch, refine_pass, pack_bits, pack_payload) count their calls
-in the [devrefine] phase, both of its legs; pack_bits counts the launches
+in the [devrefine] phase, both of its legs (the histograms 0: the passes
+read the symbols); pack_bits counts the launches
 of the packing kernel, which pack_payload launches with the gather fused
 into it; their times are on the corpus's first block (the five rows for
 the batch, 2^20 fields for pack_bits), with torch.bincount of the flat
@@ -156,7 +161,8 @@ def _zero_counts():
     from tpubz_torch.kernels import bitonic, compact, ibwt, mtf, radix, rle2, suffix_sort
 
     mtf.LAUNCHES = rle2.LAUNCHES = compact.LEAN_LAUNCHES = 0
-    ibwt.NEXT_LAUNCHES = ibwt.INVERSE_LAUNCHES = ibwt.ROUNDS_RUN = 0
+    ibwt.finish_calls()
+    ibwt.NEXT_LAUNCHES = ibwt.INVERSE_LAUNCHES = ibwt.KERNEL_LAUNCHES = 0
     suffix_sort.LAUNCHES = suffix_sort.ROUNDS_RUN = suffix_sort.KERNEL_LAUNCHES = 0
     suffix_sort.ACTIVE_SORTED = suffix_sort.PASSES_RUN = suffix_sort.PASSES_SKIPPED = 0
     suffix_sort.HOST_US.update(dict.fromkeys(suffix_sort.HOST_US, 0))
@@ -218,25 +224,6 @@ def _cuda_ms(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
-def _with_tied_tail(data):
-    """data plus a tail of all 256 byte values in order, cut so that the
-    stream's last level-9 block lies inside the tail and is a whole number
-    of its periods: every rotation of that block has 3,000-odd equals."""
-    from tpubz_torch.format.constants import block_budget
-    from tpubz_torch.hostref.rle1 import rle1_blocks
-
-    period = bytes(range(256))
-    reps = 4000  # more than one block: the last block starts inside the tail
-    while True:
-        out = data + period * reps
-        _, blocks = rle1_blocks(np.frombuffer(out, np.uint8), block_budget(LEVEL))
-        o0, o1, i0, _ = blocks[-1]
-        whole = (o1 - o0) // 256 * 256  # the tail has no runs: RLE1 leaves it as it is
-        if whole and i0 >= len(data):
-            return out[: len(out) - ((o1 - o0) - whole)]
-        reps += 2
-
-
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -250,7 +237,7 @@ def main():
 def _smoke(tmp):
     import tpubz_torch
     from tpubz_torch.block.encode import block_n
-    from tpubz_torch.corpus import edge_blocks, mixed_corpus
+    from tpubz_torch.corpus import edge_blocks, mixed_corpus, with_tied_tail
     from tpubz_torch import native
     from tpubz_torch.kernels import _build, bitonic, mtf, radix, rle2, suffix_sort
     from tpubz_torch.kernels.suffix_sort import bwt_forward
@@ -274,7 +261,7 @@ def _smoke(tmp):
 
     corpus = mixed_corpus(CORPUS_MIB, SEED)
     edges = edge_blocks()
-    data = _with_tied_tail(corpus + b"".join(edges.values()))
+    data = with_tied_tail(corpus + b"".join(edges.values()), LEVEL)
     _say("corpus", f"corpus=mixed_corpus({CORPUS_MIB}, seed={SEED}) corpus_bytes={len(corpus)} "
             f"corpus_sha256={hashlib.sha256(corpus).hexdigest()} "
             f"with_edges_and_tied_tail_bytes={len(data)} "
@@ -1012,14 +999,14 @@ def _devrefine_inputs(enc, blk):
     return out, rle2_len, freqs, used, int(used.sum()) + 2
 
 
-def _final_tables(enc, out, hist, rle2_len, freqs, alpha):
+def _final_tables(enc, out, rle2_len, freqs, alpha):
     """The device refinement's final tables of a block as the encoder hands
     them to pack_payload: (sel, codes, lens on the card, the payload's bits,
     passes)."""
     from tpubz_torch.block.encode import payload_tables
     from tpubz_torch.hostref.huffman import canonical_codes
 
-    sel, lens, rfreq, tc, passes = enc.devrefine_tables(hist, rle2_len, freqs, alpha)
+    sel, lens, rfreq, tc, passes = enc.devrefine_tables(out[1], out[2], rle2_len, freqs, alpha)
     codes = np.stack([canonical_codes(lens[t, :alpha]) for t in range(tc)])
     tables = payload_tables(sel, codes, lens, tc, alpha, out[1].shape[0], out[1].device)
     return (*tables, int((rfreq[:tc, :alpha] * lens[:tc, :alpha]).sum()), passes)
@@ -1031,15 +1018,19 @@ def devrefine_kernels(corpus, edges):
     chunk_hist on the transforms of the corpus's first level-9 block, the
     three edge blocks and the sidecar overflow block (symbols >= 256);
     chunk_hist_batch on _batch_level9_rows' five rows through the batched
-    transform; refine_pass on those blocks' histograms with C bzip2's
-    initial tables for each table count 2..6, and once with two identical
-    tables (a forced tie); pack_bits on 2^20 seeded fields of 0 to 24 bits;
-    pack_payload on the blocks' final tables, its total equal to the
-    refinement's count. Then on the corpus block (the five rows for the
-    batch, the 2^20 fields for pack_bits) each call's ms and the plain
-    version's (CUDA events), its device µs and launches (torch.profiler,
-    one call), torch.bincount's ms on the flat index for the histograms,
-    and the bound. Returns per kernel max_abs_err, ms, plain_ms,
+    transform; refine_pass over those blocks' symbols (uint16 with the
+    device length, and int32 with a host int) with C bzip2's initial tables
+    for each table count 2..6, and once with two identical tables (a forced
+    tie), and over each of the five batch rows (a view into the [B, OUT]
+    symbols); pack_bits on 2^20 seeded fields of 0 to 24 bits; pack_payload
+    on the blocks' final tables, its total equal to the refinement's count.
+    Then on the corpus block (the five rows for the batch, the 2^20 fields
+    for pack_bits) each call's ms and the plain version's (CUDA events;
+    refine_pass as the encoder calls it: its block's RefinePasses.launch),
+    its device µs and launches (torch.profiler, one call; refine_pass must
+    be one kernel), torch.bincount's ms on the flat index for the
+    histograms, and the bound (refine_pass's also in the histogram's
+    formulation). Returns per kernel max_abs_err, ms, plain_ms,
     library_ms, bound."""
     from tpubz_torch.block.encode import DeviceBlockEncoder, block_n
     from tpubz_torch.corpus import sidecar_overflow_block
@@ -1076,14 +1067,17 @@ def devrefine_kernels(corpus, edges):
              (H.chunk_hist_ref(syms, rl_d),))
         for tc in range(2, 7):
             lens = torch.from_numpy(c_init_tables(freqs, tc, alpha).astype(np.int32)).to(dev)
+            want = H.refine_pass_ref(syms, rl_d, lens, tc)
             held("refine_pass", f"{name} c_init_tables table_count={tc}",
-                 H.refine_pass(hist, lens, tc), H.refine_pass_ref(hist, lens, tc))
+                 H.refine_pass(syms, rl_d, lens, tc), want)
+            held("refine_pass", f"{name} int32_symbols host_length table_count={tc}",
+                 H.refine_pass(syms.int(), rl, lens, tc), want)
         lens = c_init_tables(freqs, 6, alpha).astype(np.int32)
         lens[4] = lens[2]  # two identical tables: their groups take table 2
         lens = torch.from_numpy(lens).to(dev)
         held("refine_pass", f"{name} tables_2_and_4_equal table_count=6",
-             H.refine_pass(hist, lens, 6), H.refine_pass_ref(hist, lens, 6))
-        sel, codes, lens, bits, passes = _final_tables(enc, out, hist, rl, freqs, alpha)
+             H.refine_pass(syms, rl_d, lens, 6), H.refine_pass_ref(syms, rl_d, lens, 6))
+        sel, codes, lens, bits, passes = _final_tables(enc, out, rl, freqs, alpha)
         words, total = H.pack_payload(syms, rl_d, sel, codes, lens)
         held("pack_payload", f"{name} final_tables passes={passes} payload_bits={bits}",
              (words, total), H.pack_payload_ref(syms, rl_d, sel, codes, lens))
@@ -1100,6 +1094,12 @@ def devrefine_kernels(corpus, edges):
          (H.chunk_hist_batch_ref(bsyms, blens),))
     one = torch.stack([H.chunk_hist(bsyms[b], blens[b]) for b in range(B)])
     held("chunk_hist_batch", "one-block chunk_hist row by row", (bhist,), (one,))
+    blens6 = np.random.default_rng(SEED + 13).integers(1, 18, (6, 258)).astype(np.int32)
+    blens6 = torch.from_numpy(blens6).to(dev)
+    for b in range(B):
+        held("refine_pass", f"batch_row_view {row_names[b]} table_count=5",
+             H.refine_pass(bsyms[b], blens[b], blens6, 5),
+             H.refine_pass_ref(bsyms[b], blens[b], blens6, 5))
 
     m = 1 << 20
     fbits = rng.integers(0, 25, m).astype(np.int32)
@@ -1123,6 +1123,9 @@ def devrefine_kernels(corpus, edges):
              + bsyms.to(torch.int64))[bidx < blens[:, None]]
     hist_bytes = nsel * 258 * 4
     words_out = H.payload_words_cap(OUT) * 4 + 8
+    passes = H.RefinePasses(syms, rl_d)
+    passes.lens.copy_(lens6)
+    tables_bytes = 2 * 6 * 258 * 4  # the lengths in, the frequencies out
     timed = {
         # symbols of the stream in, the whole histogram out
         "chunk_hist": (lambda: H.chunk_hist(syms, rl_d), lambda: H.chunk_hist_ref(syms, rl_d),
@@ -1133,12 +1136,13 @@ def devrefine_kernels(corpus, edges):
                              lambda: torch.bincount(bflat, minlength=B * nsel * 258),
                              _bound(2 * int(blens.sum()) + 4 * B + B * hist_bytes,
                                     int(blens.sum())), 20, f"{','.join(row_names)} B={B}"),
-        # the histogram and the lengths in; selectors and frequencies out;
-        # a multiply and an add per count and table
-        "refine_pass": (lambda: H.refine_pass(hist, lens6, 6),
-                        lambda: H.refine_pass_ref(hist, lens6, 6), None,
-                        _bound(hist_bytes + 2 * 6 * 258 * 4 + nsel, 2 * 6 * 258 * nsel), 20,
-                        "corpus_block0 c_init_tables table_count=6"),
+        # the symbols of the stream and the lengths in; selectors and
+        # frequencies out; six length gathers and adds and one count a symbol
+        "refine_pass": (lambda: passes.launch(6),
+                        lambda: H.refine_pass_ref(syms, rl_d, lens6, 6), None,
+                        _bound(sym_bytes * rl + 8 + tables_bytes + nsel, 7 * rl), 20,
+                        "corpus_block0 c_init_tables table_count=6 (the encoder's form: its "
+                        "block's RefinePasses.launch)"),
         # values and lengths in, the words and the total out
         "pack_bits": (lambda: bitpack.pack_bits_device(vals, fb, cap),
                       lambda: bitpack.pack_bits_device_ref(vals, fb, cap), None,
@@ -1156,11 +1160,19 @@ def devrefine_kernels(corpus, edges):
         prof = kernel_device_us(run)
         result[name] = {"max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
                         "library_ms": library_ms, "bound": bound, "device_us": prof["sum_us"]}
+        extra = ""
+        if name == "refine_pass":
+            if prof["launches"] != 1 or not all("refine_symbols" in k for k in prof["kernels_us"]):
+                raise AssertionError(f"a refinement pass ran {prof['kernels_launches']} on the card")
+            # the histogram's formulation: the 18.6 MB histogram read a pass,
+            # a multiply and an add per count and table
+            old = _bound(hist_bytes + tables_bytes + nsel, 2 * 6 * 258 * nsel)
+            extra = f"histogram_formulation_bound_us={old[0] * 1e3} bound_by={old[1]} "
         _say("kernel", f"{name} kernel_ms={ms} plain_ms={plain_ms} "
                 + (f"torch_bincount_ms={library_ms} " if library else "")
                 + f"device_us={prof['sum_us']} device_launches={prof['launches']} "
-                f"bound_us={bound[0] * 1e3} bound_by={bound[1]} (CUDA events; device time "
-                f"from torch.profiler, one call; inputs={what})")
+                f"bound_us={bound[0] * 1e3} bound_by={bound[1]} {extra}(CUDA events; device "
+                f"time from torch.profiler, one call; inputs={what})")
     return result
 
 
@@ -1263,11 +1275,13 @@ def lean_ibwt_kernels(padded, n0, edges):
         if bytes(out.cpu().numpy()) != tiny:
             raise AssertionError(f"bwt_inverse_device did not give {tiny!r} back")
 
+    ibwt.finish_calls()
+    ibwt.bwt_inverse_device(key, last, n)
+    (record,) = ibwt.finish_calls()  # the corpus block's walks, as the card counted them
     ranks, used = mtf.mtf_ranks(last, n)
     OUT = N + 8
     idx = torch.arange(N, device=dev)
     sym = torch.where(idx < n, last.to(torch.int32), 256)
-    rounds = ibwt.rounds_for(n)
     timed = {
         # ranks and the used map in; uint16 symbols, bytes, length, slots,
         # count out
@@ -1298,16 +1312,29 @@ def lean_ibwt_kernels(padded, n0, edges):
                         // max(compact.LEAN_LAUNCHES - before[0], 1))
             extra = f"kernels_per_call={per_call} (the wrapper's count) "
         if name == "bwt_inverse":
-            # this formulation's HBM bytes: the next pointers (the keys
-            # written, two passes' reads and writes, the pointers written),
-            # then per round the pointer array read, gathered and written
-            # and the positions extended, as if none of it stayed in the L2
-            form = _bound(n + 8 * n + 32 * n + 4 * N + rounds * 12 * n + 5 * n, rounds * n)
-            extra = (f"rounds={rounds} this_formulation_hbm_bound_us={form[0] * 1e3} "
-                     f"(its 3.6 MB pointer arrays fit in the 50 MB L2) ")
+            # this formulation's HBM bytes, each array once, as if none of
+            # it stayed in the L2: the column read, the keys written, the
+            # pass's read and write, the sorted keys gathered by the walks,
+            # the kept bytes written and read, the output written; the
+            # level-1 nodes, records and resume rows, the level-2 nodes and
+            # offsets written and read
+            if prof["launches"] > 8:
+                raise AssertionError(f"an inverse call made {prof['launches']} launches on the card")
+            m1, m2 = record["splitters"], record["list_splitters"]
+            form = _bound(n + 8 * n + 16 * n + 8 * n + 2 * n + n + 36 * m1 + 24 * m2, 8 * n)
+            extra = (f"this_formulation_hbm_bound_us={form[0] * 1e3} log2_windows="
+                     f"{ibwt.sizes()['log_d']} splitters={record['splitters']} "
+                     f"mean_segment={n / max(record['splitters'], 1)} "
+                     f"longest_segment={record['longest']} "
+                     f"level2_splitters={record['list_splitters']} "
+                     f"longest_level2_walk={record['list_longest']} "
+                     f"top_splitters={record['top_splitters']} orbit={record['orbit']} "
+                     f"(its ~20 MB of arrays fit in the 50 MB L2; the walks are chains of "
+                     f"dependent L2 loads) ")
         _say("kernel", f"{name} N={N} n={n} kernel_ms={ms} plain_ms={plain_ms} "
                 + (f"torch_sort_stable_ms={library_ms} " if library else "")
-                + f"device_us={prof['sum_us']} device_launches={prof['launches']} "
+                + f"device_us={prof['sum_us']} device_busy_us={prof['busy_us']} "
+                f"device_launches={prof['launches']} "
                 f"bound_us={bound[0] * 1e3} bound_by={bound[1]} {extra}(CUDA events; device "
                 f"time from torch.profiler, one call; inputs=corpus_block0)")
     return result
@@ -1444,18 +1471,22 @@ def inverse(tpubz_torch, data, stream):
     """The inverse BWT on the card on [path]'s blocks, its counts read from
     zero: each block's (key, last column) from transform_bwt, then
     bwt_inverse_device, which must give the RLE1 block back; every call
-    must have run the next pointers and ceil(log2 n) doubling rounds and no
-    plain version. Its ms a block (CUDA events around the call) beside
-    tpubz_torch.decompress's ms a block on [path]'s stream (host clock).
-    Returns the launches."""
+    must have run the next pointers and, by its record as the card counted
+    it, the orbit's three kernels, with L the length of p_0's cycle (a
+    divisor of n: n itself unless the block is periodic) and segments among
+    its walks; no plain version may run. Its ms a block (CUDA events around
+    the call) beside tpubz_torch.decompress's ms a block on [path]'s stream
+    (host clock), and the walks' lengths. Returns the launches."""
     from tpubz_torch.block.encode import DeviceBlockEncoder
     from tpubz_torch.kernels import ibwt
 
     blocks = _level_blocks(data)
     enc = DeviceBlockEncoder(LEVEL)
-    ibwt.NEXT_LAUNCHES = ibwt.INVERSE_LAUNCHES = ibwt.ROUNDS_RUN = 0
+    ibwt.finish_calls()
+    ibwt.NEXT_LAUNCHES = ibwt.INVERSE_LAUNCHES = ibwt.KERNEL_LAUNCHES = 0
+    orbit_kernels = ibwt.sizes()["orbit_kernels"]
     torch.cuda.synchronize()
-    ms, want_rounds = [], 0
+    ms, records = [], []
     with _PlainCalls([(ibwt, "next_pointers_ref"), (ibwt, "bwt_inverse_device_ref")]) as plain:
         for blk, _ in blocks:
             key, last, n = enc.transform_bwt(blk)
@@ -1467,43 +1498,56 @@ def inverse(tpubz_torch, data, stream):
             stop.record()
             stop.synchronize()
             ms.append(start.elapsed_time(stop))
-            want_rounds += ibwt.rounds_for(n)
+            (rec,) = ibwt.finish_calls()
+            records.append(rec)
             if not np.array_equal(out.cpu().numpy(), blk):
                 raise AssertionError(f"bwt_inverse_device did not give a {n}-byte block back")
+            if (rec["n"] != n or rec["launches"] != orbit_kernels or n % rec["orbit"]
+                    or not 1 <= rec["segments"] <= rec["splitters"]
+                    or rec["longest"] * rec["segments"] < rec["orbit"]):
+                raise AssertionError(f"the inverse of a {n}-byte block counted {rec}")
     launches = {"next_pointers": ibwt.NEXT_LAUNCHES, "bwt_inverse": ibwt.INVERSE_LAUNCHES}
     nb = len(blocks)
     if (launches["next_pointers"] != nb or launches["bwt_inverse"] != nb
-            or ibwt.ROUNDS_RUN != want_rounds or any(plain.calls.values())):
-        raise AssertionError(f"inverse launches {launches}, {ibwt.ROUNDS_RUN} rounds (want "
-                             f"{want_rounds}) for {nb} blocks, plain calls {plain.calls}")
+            or ibwt.KERNEL_LAUNCHES != orbit_kernels * nb or any(plain.calls.values())):
+        raise AssertionError(f"inverse launches {launches}, {ibwt.KERNEL_LAUNCHES} orbit kernels "
+                             f"on the card for {nb} blocks, plain calls {plain.calls}")
     t0 = time.perf_counter()
     if tpubz_torch.decompress(stream) != data:
         raise AssertionError("tpubz_torch.decompress failed")
     dec_ms = (time.perf_counter() - t0) * 1e3 / nb
+    periodic = sum(r["orbit"] < r["n"] for r in records)
     _say("ibwt", f"blocks={nb} inverse==rle1_block launches={launches} "
-         f"rounds={ibwt.ROUNDS_RUN} plain_calls={plain.calls} "
+         f"orbit_kernels_on_card={ibwt.KERNEL_LAUNCHES} plain_calls={plain.calls} "
          f"inverse_ms_per_block_median={float(np.median(ms))} "
          f"inverse_ms_per_block_range=[{min(ms)},{max(ms)}] "
-         f"decompress_ms_per_block={dec_ms} (inverse: CUDA events around the call, host launch "
-         f"included; decompress: host clock, the whole stream over its blocks)")
+         f"decompress_ms_per_block={dec_ms} log2_windows={ibwt.sizes()['log_d']} "
+         f"periodic_blocks={periodic} "
+         f"mean_segment_median={float(np.median([r['n'] / r['splitters'] for r in records]))} "
+         f"longest_segment_max={max(r['longest'] for r in records)} "
+         f"longest_level2_walk_max={max(r['list_longest'] for r in records)} "
+         f"(inverse: CUDA events around the call, host launch included; decompress: host "
+         f"clock, the whole stream over its blocks; segments in rows, level-2 walks in "
+         f"level-1 segments)")
     return launches
 
 
 def devrefine(tpubz_torch, data, stream):
     """The device refine encoder on [path]'s data, its counts read from zero:
     every level-9 block through DeviceBlockEncoder.transform and
-    encode_block_devrefine (chunk_hist, the refine_pass of each pass, and
-    pack_payload's fused packing kernel), spliced with the stream header,
-    the CRC fold and the footer as stream/api.py's _compress_impl does; then
-    the same blocks as rows of the batched transform (make_sharded_transform,
-    up to 8 rows a call), each call's histograms in one chunk_hist_batch
-    launch and each row through encode_block_devrefine with its histogram.
+    encode_block_devrefine (the refine_pass of each pass over the block's
+    symbols, and pack_payload's fused packing kernel), spliced with the
+    stream header, the CRC fold and the footer as stream/api.py's
+    _compress_impl does; then the same blocks as rows of the batched
+    transform (make_sharded_transform, up to 8 rows a call), each row
+    through encode_block_devrefine with its symbols a view into the batch.
     Both streams must equal [path]'s and round-trip through
-    tpubz_torch.decompress and bunzip2; every kernel must have launched and
-    no plain version run. Host ms a block of encode_block_devrefine (the
+    tpubz_torch.decompress and bunzip2; every kernel of the path must have
+    launched (one refine_pass a pass), the histograms (off the path) not,
+    and no plain version run. Host ms a block of encode_block_devrefine (the
     transform done and waited for) against emit_block on the same fetched
-    blocks, and the refinement passes a block. Returns the launches by
-    kernel name."""
+    blocks, the refinement passes a block, and a pass's host µs by part
+    (the encoder's devrefine_host_us). Returns the launches by kernel name."""
     from tpubz_torch.block.encode import DeviceBlockEncoder
     from tpubz_torch.dist.sharded import make_sharded_transform
     from tpubz_torch.kernels import bitpack, huffman_dev as H
@@ -1533,6 +1577,7 @@ def devrefine(tpubz_torch, data, stream):
         one_block_s = time.perf_counter() - t0
         got = splice(accs)
         passes = H.REFINE_LAUNCHES
+        host_us = dict(enc.devrefine_host_us)
         transform = make_sharded_transform(torch.device("cuda"), enc.N)
         accs = []
         for lo in range(0, len(blocks), 8):
@@ -1541,10 +1586,9 @@ def devrefine(tpubz_torch, data, stream):
             for b, (blk, _) in enumerate(part):
                 rows[b, : blk.size] = torch.from_numpy(np.array(blk))
             keys, syms, rle2_len, freqs, used = transform(rows, [blk.size for blk, _ in part])[:5]
-            hist = H.chunk_hist_batch(syms, rle2_len)
             for b, (_, crc) in enumerate(part):
                 accs.append(enc.encode_block_devrefine(
-                    (keys[b], syms[b], rle2_len[b], freqs[b], used[b]), crc, hist=hist[b]))
+                    (keys[b], syms[b], rle2_len[b], freqs[b], used[b]), crc))
         got_rows = splice(accs)
         torch.cuda.synchronize()
     launches = {"chunk_hist": H.HIST_LAUNCHES, "chunk_hist_batch": H.HIST_BATCH_LAUNCHES,
@@ -1556,15 +1600,17 @@ def devrefine(tpubz_torch, data, stream):
     if tpubz_torch.decompress(got) != data:
         raise AssertionError("tpubz_torch.decompress round trip of the device refine stream failed")
     ran = ["tpubz_torch.decompress"] + ["bunzip2"] * _bunzip2_ok(got, data)
-    if (launches["chunk_hist"] != n or launches["chunk_hist_batch"] != -(-n // 8)
+    if (launches["chunk_hist"] or launches["chunk_hist_batch"]
             or launches["pack_payload"] != 2 * n or launches["pack_bits"] != 2 * n
-            or passes < 4 * n or launches["refine_pass"] != 2 * passes):
+            or passes < 4 * n or launches["refine_pass"] != 2 * passes
+            or host_us["passes"] != passes):
         raise AssertionError(f"device refine launches {launches} for {n} blocks, {passes} passes")
     if any(plain.calls.values()):
         raise AssertionError(f"plain versions ran in [devrefine]: {plain.calls}")
     _say("devrefine", f"blocks={n} stream==path_stream rows_stream==path_stream "
          f"round_trips={'+'.join(ran)} launches={launches} plain_calls={plain.calls} "
          f"passes_per_block={passes / n} passes={passes} "
+         f"pass_host_us_mean={ {k: host_us[k] / passes for k in ('upload', 'launch', 'fetch', 'trees')} } "
          f"devrefine_host_ms_per_block_median={float(np.median(dev_ms))} "
          f"devrefine_host_ms_per_block_range=[{min(dev_ms)},{max(dev_ms)}] "
          f"emit_block_host_ms_per_block_median={float(np.median(emit_ms))} "
@@ -1769,11 +1815,11 @@ def multihost(tpubz_torch, corpus, edges, rng, tmp):
     Then one rank on the same data, for its MB/s beside the two ranks',
     compress's and compress_cpu's. Returns the two ranks' launches summed,
     by kernel."""
-    from tpubz_torch.corpus import sidecar_overflow_block
+    from tpubz_torch.corpus import sidecar_overflow_block, with_tied_tail
     from tpubz_torch.stage_probe import DEVICE_ONLY, env
 
-    data = _with_tied_tail(corpus[: 6 * LEVEL * 100_000] + rng.bytes(LEVEL * 100_000)
-                           + edges["all256"] + sidecar_overflow_block())
+    data = with_tied_tail(corpus[: 6 * LEVEL * 100_000] + rng.bytes(LEVEL * 100_000)
+                          + edges["all256"] + sidecar_overflow_block(), LEVEL)
     job = os.path.join(tmp, "multihost")
     with open(job + ".in", "wb") as f:
         f.write(data)

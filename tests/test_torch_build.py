@@ -192,3 +192,67 @@ def test_rle2_wrapper_constants_follow_the_source():
     assert rle2.TILE == value["kThreads"] * value["kPer"]
     assert rle2.MAX_OUT == 1 << value["kFieldBits"]
     assert rle2.scratch_bytes(1, 0) == 8 + 4 and rle2.scratch_bytes(2, 4097) == 2 * (16 + 4)
+
+
+def test_ibwt_densities_follow_the_source():
+    """kernels/ibwt.py's splitter windows and kept bytes are csrc/ibwt.cu's, and
+    every density ibwt_probe builds fits the top's nodes (level-2 nodes of
+    8 bytes, levels 3 and 4 of 12 at n = 2^20) in one CTA's shared memory,
+    a level-4 node a thread, as the source's static_asserts demand."""
+    import re
+
+    from tpubz_torch import ibwt_probe
+    from tpubz_torch.kernels import ibwt
+
+    text = open(os.path.join(_build.CSRC_DIR, "ibwt.cu")).read()
+    assert tuple(int(re.search(rf"constexpr int kLog{k} = (\d+);", text).group(1))
+                 for k in (1, 2, 3)) == ibwt.LOG_D == ibwt_probe.DENSITIES["as_is"]
+    assert int(re.search(r"constexpr int kBuffered = (\d+);", text).group(1)) == ibwt.KEPT
+    assert len(ibwt_probe.DENSITIES) >= 3
+    for l1, l2, l3 in ibwt_probe.DENSITIES.values():
+        level2 = ((((1 << 20) >> l1) + 1 + (1 << l2) - 1) >> l2) + 1
+        level3 = ((level2 + (1 << l3) - 1) >> l3) + 1
+        level4 = ((level3 + (1 << l3) - 1) >> l3) + 1
+        assert 8 * level2 + 12 * level3 + 12 * level4 <= 227 * 1024 and level4 <= 1024
+        assert min(l1, l2, l3) >= 1
+
+
+@pytest.mark.parametrize("level", [1, 2])
+def test_with_tied_tail_ends_in_whole_periods(level):
+    """corpus.with_tied_tail: the last block lies in the tail and is a whole
+    number of its 256-byte periods (rotations tied), as chip_smoke.py and
+    ibwt_probe take it."""
+    import numpy as np
+
+    from tpubz_torch.corpus import with_tied_tail
+    from tpubz_torch.format.constants import block_budget
+    from tpubz_torch.hostref.rle1 import rle1_blocks
+
+    head = bytes(np.random.default_rng(level).integers(0, 256, 150_000, dtype=np.uint8))
+    data = with_tied_tail(head, level)
+    _, cuts = rle1_blocks(np.frombuffer(data, np.uint8), block_budget(level))
+    o0, o1, i0, i1 = cuts[-1]
+    assert i0 >= len(head) and (o1 - o0) % 256 == 0 and i1 == len(data)
+    last = data[i0:]  # the tail's bytes in order, from some phase
+    assert last == last[:256] * ((o1 - o0) // 256) and sorted(last[:256]) == list(range(256))
+
+
+def test_ibwt_probe_timeline_follows_the_source():
+    """The probe's timeline edits each apply once to csrc/ibwt.cu and
+    csrc/huffman_dev.cu as they are, and so do its variants' (densities,
+    CTA shapes, the refinement's alternatives)."""
+    from tpubz_torch import ibwt_probe
+
+    for text, edits in ((ibwt_probe.timeline_source(), ibwt_probe.TIMELINE),
+                        (ibwt_probe.refine_timeline_source(), ibwt_probe.REFINE_TIMELINE)):
+        assert text.count("g_marks[") == sum(new.count("g_marks[") for _, new in edits)
+    other = ibwt_probe._edited(ibwt_probe.REFINE_SOURCE, ibwt_probe.RUNS_IN_REGISTERS)
+    assert "run_a += s == 0" in other
+    other = ibwt_probe._edited(ibwt_probe.REFINE_SOURCE, ibwt_probe.LENS_16BIT)
+    assert "uint4 s_len[" in other
+    for logs in ibwt_probe.DENSITIES.values():
+        other = ibwt_probe._edited(ibwt_probe.SOURCE, ibwt_probe.density_edits(logs))
+        assert f"constexpr int kLog1 = {logs[0]};" in other
+    for shape in ibwt_probe.REFINE_SHAPES.values():
+        other = ibwt_probe._edited(ibwt_probe.REFINE_SOURCE, ibwt_probe.shape_edits(shape))
+        assert f"constexpr int kRefineWarps = {shape[0]};" in other

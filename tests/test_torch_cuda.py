@@ -901,7 +901,8 @@ def _level9_transform(name, enc):
 
 @pytest.mark.parametrize("name", _DEVREFINE_BLOCKS)
 def test_devrefine_kernels_match_plain_level9(cuda, name):
-    """On a level-9 block's transform: chunk_hist, refine_pass for every
+    """On a level-9 block's transform: chunk_hist, refine_pass over the
+    symbols (uint16 with the device length, int32 with a host int) for every
     table count and with two equal tables, and pack_payload on the final
     tables equal their plain versions on the card, whole arrays; each call
     counts one launch, and pack_payload's total is the refinement's."""
@@ -924,13 +925,15 @@ def test_devrefine_kernels_match_plain_level9(cuda, name):
         if tc == 6:
             lens[5] = lens[1]
         lens = torch.from_numpy(lens).to(cuda)
-        before = H.REFINE_LAUNCHES
-        got = H.refine_pass(hist, lens, tc)
-        torch.cuda.synchronize()
-        assert H.REFINE_LAUNCHES == before + 1
-        for g, w in zip(got, H.refine_pass_ref(hist, lens, tc)):
-            assert g.dtype == w.dtype and torch.equal(g, w)
-    sel, lens, rfreq, tc, passes = enc.devrefine_tables(hist, rl, freqs, alpha)
+        want = H.refine_pass_ref(syms, rl_d, lens, tc)
+        for s_, length in ((syms, rl_d), (syms.int(), rl)):
+            before = H.REFINE_LAUNCHES
+            got = H.refine_pass(s_, length, lens, tc)
+            torch.cuda.synchronize()
+            assert H.REFINE_LAUNCHES == before + 1
+            for g, w in zip(got, want):
+                assert g.dtype == w.dtype and torch.equal(g, w)
+    sel, lens, rfreq, tc, passes = enc.devrefine_tables(syms, rl_d, rl, freqs, alpha)
     codes = np.stack([canonical_codes(lens[t, :alpha]) for t in range(tc)])
     args = (syms, rl_d, *payload_tables(sel, codes, lens, tc, alpha, syms.shape[0], cuda))
     before = (H.PAYLOAD_LAUNCHES, bitpack.LAUNCHES)
@@ -940,6 +943,86 @@ def test_devrefine_kernels_match_plain_level9(cuda, name):
     rwords, rtotal = H.pack_payload_ref(*args)
     assert torch.equal(words, rwords) and int(total) == int(rtotal)
     assert int(total) == int((rfreq[:tc, :alpha] * lens[:tc, :alpha]).sum()) and passes >= 4
+
+
+@pytest.mark.parametrize("out_len", [1, 49, 50, 51, 799, 800, 801, 12_799, 12_800, 12_801,
+                                     900_104])
+def test_refine_pass_on_card_tile_edges(cuda, out_len):
+    """refine_pass over seeded symbols (RUNA/RUNB runs, 256 and 257, a block
+    of one hot bin) at the edges of a group, a warp's 800-symbol tile and a
+    CTA's 12,800, for stream lengths of 1, a partial group and all lanes,
+    equals its plain version; two calls on the shared scratch in a row
+    (tables with stale rows, then zero rows past the count) stay equal,
+    so each call leaves the scratch zeroed."""
+    from tpubz_torch.kernels import huffman_dev as H
+
+    rng = np.random.default_rng(out_len)
+    s = rng.integers(0, 258, out_len)
+    s[rng.random(out_len) < 0.5] = rng.integers(0, 2)
+    s[: out_len // 3] = 1  # a hot bin
+    syms = torch.from_numpy(s.astype(np.uint16)).to(cuda)
+    for rl in sorted({1, max(1, out_len - 7), out_len}):
+        for tc, stale in ((3, 15), (6, 0), (2, 0)):
+            lens = rng.integers(1, 18, (6, 258)).astype(np.int32)
+            lens[tc:] = stale
+            lens = torch.from_numpy(lens).to(cuda)
+            got = H.refine_pass(syms, torch.tensor(rl, device=cuda), lens, tc)
+            want = H.refine_pass_ref(syms, rl, lens, tc)
+            torch.cuda.synchronize()
+            assert all(torch.equal(g, w) for g, w in zip(got, want)), (rl, tc)
+    assert not any(int(t.abs().sum()) for t in H._scratch.values())
+
+
+def test_refine_pass_is_one_launch_on_card(cuda):
+    """One refinement pass is one kernel on the card (no memset, no copy),
+    by torch.profiler; a block's RefinePasses allocates once and each pass
+    equals the plain version."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpubz_torch.hostref.huffman import c_init_tables
+    from tpubz_torch.kernels import huffman_dev as H
+
+    enc = DeviceBlockEncoder(9)
+    _, syms, rl_d, freqs_d, used_d = _level9_transform("corpus_block0", enc)
+    freqs, used = freqs_d.cpu().numpy(), used_d.cpu().numpy()
+    alpha, rl = int(used.sum()) + 2, int(rl_d)
+    lens = torch.from_numpy(c_init_tables(freqs, 6, alpha).astype(np.int32)).to(cuda)
+    H.refine_pass(syms, rl_d, lens, 6)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        H.refine_pass(syms, rl_d, lens, 6)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len(names) == 1 and "refine_symbols" in names[0], names
+    passes = H.RefinePasses(syms, rl_d)
+    nsel = H.nsel_cap(rl)
+    for tc in (6, 4):
+        table = c_init_tables(freqs, tc, alpha)
+        sel, rfreq = passes.run(table, tc, nsel)
+        wsel, wrfreq = H.refine_pass_ref(syms, rl_d, torch.from_numpy(table.astype(np.int32)), tc)
+        assert np.array_equal(sel, wsel.cpu().numpy()[:nsel])
+        assert np.array_equal(rfreq, wrfreq.cpu().numpy())
+    assert not passes.scratch.any() and set(passes.host_us) == {"upload", "launch", "fetch"}
+
+
+@pytest.mark.parametrize("B", list(_BATCHES))
+def test_refine_pass_on_card_batch_rows(cuda, B):
+    """refine_pass on each row of the batched transform (a uint16 view at
+    the row's offset into [B, OUT], its int32 length a 0-d view) equals its
+    plain version."""
+    from tpubz_torch.dist.sharded import make_sharded_transform
+    from tpubz_torch.kernels import huffman_dev as H
+
+    data, n = _batch_rows(B, cuda)
+    _, syms, rle2_len = make_sharded_transform(cuda, 900_096)(data, n)[:3]
+    rng = np.random.default_rng(B)
+    lens = torch.from_numpy(rng.integers(1, 18, (6, 258)).astype(np.int32)).to(cuda)
+    for b in range(B):
+        got = H.refine_pass(syms[b], rle2_len[b], lens, 5)
+        want = H.refine_pass_ref(syms[b], rle2_len[b], lens, 5)
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), b
 
 
 @pytest.mark.parametrize("B", list(_BATCHES))
@@ -993,7 +1076,7 @@ def test_encode_block_devrefine_on_card_matches_emit_block(cuda, name):
     got = enc.encode_block_devrefine(out, 0x9ABCDEF0).pack()
     assert got == enc.emit_block(*enc.fetch(out), 0x9ABCDEF0).pack()
     after = (H.HIST_LAUNCHES, H.REFINE_LAUNCHES, H.PAYLOAD_LAUNCHES)
-    assert after[0] == before[0] + 1 and after[1] >= before[1] + 4
+    assert after[0] == before[0] and after[1] >= before[1] + 4  # no histogram: the symbols
     assert after[2] == before[2] + 1
 
 
@@ -1009,6 +1092,17 @@ def test_devrefine_wrappers_reject_what_the_kernels_do_not_take(cuda):
         H.chunk_hist_batch(syms.view(1, -1), torch.tensor([1, 2], device=cuda))
     with pytest.raises(TypeError):
         bitpack.pack_bits_device(syms.to(torch.int64), syms.to(torch.int64), 10)
+    lens = torch.ones(6, 258, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        H.refine_pass(syms, 10, lens.cpu(), 6)  # the lengths on another device
+    with pytest.raises(ValueError):
+        H.refine_pass(syms, 10, lens, 7)
+    with pytest.raises(TypeError):
+        H.refine_pass(syms.to(torch.int64), 10, lens, 6)
+    with pytest.raises(TypeError):
+        H.refine_pass(syms, torch.tensor(10.0, device=cuda), lens, 6)
+    with pytest.raises(ValueError):
+        H.RefinePasses(syms, 10).launch(1)
 
 
 _LEAN_SOURCES = {
@@ -1078,11 +1172,38 @@ def test_encode_block_lean_on_card_matches_native(cuda, tpubz_native):
         assert enc.encode_block(blk, 0x1234).pack() == want.pack(), name
 
 
+def _cycle(key, last, n):
+    """The length of p_0's cycle of the next pointers, on the host."""
+    from tpubz_torch.kernels import ibwt
+
+    nxt = ibwt.next_pointers_ref(last.cpu(), n).numpy()
+    p = start = int(nxt[key])
+    length = 0
+    while True:
+        p, length = int(nxt[p]), length + 1
+        if p == start:
+            return length
+
+
+def _check_inverse_record(rec, key, last, n):
+    """A finished inverse's record, as the card counted it: the orbit's
+    four kernels, L equal to p_0's cycle, segments of p_0's cycle among
+    the level-1 walks, the longest walk at least the mean segment."""
+    from tpubz_torch.kernels import ibwt
+
+    orbit = _cycle(key, last, n)
+    assert rec["n"] == n and rec["launches"] == ibwt.sizes()["orbit_kernels"] == 4
+    assert rec["orbit"] == orbit and 1 <= rec["segments"] <= rec["splitters"]
+    assert rec["longest"] * rec["segments"] >= orbit
+    assert rec["list_splitters"] >= 1 and rec["top_splitters"] >= 1
+
+
 @pytest.mark.parametrize("name", ["corpus_block0", "near_periodic", "one_byte_run", "all256"])
 def test_ibwt_kernels_on_card_level9(cuda, name):
     """next_pointers and bwt_inverse_device on the card equal their plain
     versions on a level-9 block's BWT, and the inverse gives the block
-    back; each call counts its launches and its ceil(log2 n) rounds."""
+    back; each call counts its launches, and the inverse's record (read
+    after the call, counted on the card) holds the orbit and its walks."""
     from tpubz_torch.kernels import ibwt
 
     last, n = _level9_last(name, cuda)
@@ -1090,36 +1211,81 @@ def test_ibwt_kernels_on_card_level9(cuda, name):
     data = torch.zeros(900_096, dtype=torch.uint8, device=cuda)
     data[:n] = torch.frombuffer(bytearray(blk), dtype=torch.uint8).to(cuda)
     key = int(bwt_forward(data, n)[0])
-    before = (ibwt.NEXT_LAUNCHES, ibwt.INVERSE_LAUNCHES, ibwt.ROUNDS_RUN)
+    ibwt.finish_calls()
+    before = (ibwt.NEXT_LAUNCHES, ibwt.INVERSE_LAUNCHES, ibwt.KERNEL_LAUNCHES)
     nxt = ibwt.next_pointers(last, n)
     out = ibwt.bwt_inverse_device(key, last, n)
-    torch.cuda.synchronize()
-    assert (ibwt.NEXT_LAUNCHES, ibwt.INVERSE_LAUNCHES, ibwt.ROUNDS_RUN) == (
-        before[0] + 2, before[1] + 1, before[2] + ibwt.rounds_for(n))
+    (rec,) = ibwt.finish_calls()
+    assert (ibwt.NEXT_LAUNCHES, ibwt.INVERSE_LAUNCHES, ibwt.KERNEL_LAUNCHES) == (
+        before[0] + 2, before[1] + 1, before[2] + 4)
     assert torch.equal(nxt, ibwt.next_pointers_ref(last, n))
     assert bytes(out.cpu().numpy()) == blk
     assert torch.equal(out, ibwt.bwt_inverse_device_ref(key, last, n))
+    _check_inverse_record(rec, key, last, n)
+    assert (rec["orbit"] < n) == (name in ("one_byte_run", "all256"))
 
 
-@pytest.mark.parametrize("n", [0, 1, 2, 3, 4095, 4096, 4097, 100_000])
-def test_ibwt_kernels_on_card_small(cuda, n):
+def _small_blocks():
+    rng = np.random.default_rng(7)
+    blocks = {f"random3_{n}": rng.integers(0, 3, n, dtype=np.uint8).tobytes()
+              for n in (0, 1, 2, 3, 4095, 4096, 4097, 100_000)}
+    blocks.update({
+        "abc_333": b"abc" * 333,  # 333 cycles of 3
+        "period_256": bytes(range(256)) * 64,  # a period past the fill's 16-byte words
+        "period_16385": bytes(rng.integers(0, 256, 16_385, dtype=np.uint8)) * 3,
+        "run_5000": b"a" * 5000,  # every row a fixed point
+        "max_n": rng.integers(0, 256, 1 << 20, dtype=np.uint8).tobytes(),  # positions of 20 bits
+    })
+    return blocks
+
+
+@pytest.mark.parametrize("name", list(_small_blocks()))
+def test_ibwt_kernels_on_card_small(cuda, name):
     """The inverse kernels at small and tile-edge lengths with pad lanes
-    past n (N = n + 100): pointers equal to the plain version and the
-    block given back; the calls count their kernels only for n > 0, where
-    the key and sort kernels run."""
+    past n (N = n + 100), periodic blocks (L < n: the fill from shared
+    memory and, past 16,384, from the output), a run block and n = 2^20:
+    pointers equal to the plain version, the block given back, the record
+    held; the calls count their kernels only for n > 0."""
     from tpubz_torch.kernels import ibwt
 
-    rng = np.random.default_rng(n)
-    blk = rng.integers(0, 3, n, dtype=np.uint8).tobytes()
+    blk = _small_blocks()[name]
+    n = len(blk)
     data = torch.zeros(n + 100, dtype=torch.uint8, device=cuda)
     if n:
         data[:n] = torch.frombuffer(bytearray(blk), dtype=torch.uint8).to(cuda)
     key, last = bwt_forward(data, n)
+    ibwt.finish_calls()
     before = (ibwt.NEXT_LAUNCHES, ibwt.INVERSE_LAUNCHES)
     assert torch.equal(ibwt.next_pointers(last, n), ibwt.next_pointers_ref(last, n))
     assert bytes(ibwt.bwt_inverse_device(int(key), last, n).cpu().numpy()) == blk
     ran = int(n > 0)
     assert (ibwt.NEXT_LAUNCHES, ibwt.INVERSE_LAUNCHES) == (before[0] + 2 * ran, before[1] + ran)
+    records = ibwt.finish_calls()
+    assert len(records) == ran
+    if ran:
+        _check_inverse_record(records[0], int(key), last, n)
+
+
+def test_ibwt_inverse_calls_in_flight_on_card(cuda):
+    """Twenty inverse calls enqueued back to back with no wait between
+    them: every output equal to its block, and their records read in call
+    order afterwards."""
+    from tpubz_torch.kernels import ibwt
+
+    rng = np.random.default_rng(3)
+    blocks = [rng.integers(0, 1 + k, 50_000 + 997 * k, dtype=np.uint8).tobytes()
+              for k in range(20)]
+    cols = []
+    for blk in blocks:
+        data = torch.frombuffer(bytearray(blk), dtype=torch.uint8).to(cuda)
+        key, last = bwt_forward(data, len(blk))
+        cols.append((int(key), last))
+    ibwt.finish_calls()
+    outs = [ibwt.bwt_inverse_device(key, last, last.shape[0]) for key, last in cols]
+    records = ibwt.finish_calls()
+    assert [r["n"] for r in records] == [len(b) for b in blocks]
+    assert all(bytes(o.cpu().numpy()) == b for o, b in zip(outs, blocks))
+    assert ibwt.sizes()["log_d"] == ibwt.LOG_D
 
 
 def test_lean_and_ibwt_wrappers_reject_what_the_kernels_do_not_take(cuda):

@@ -7,7 +7,8 @@ the kernels on the port's ``transform`` output; its bytes must equal
 ``emit_block``'s (the native refinement and packing) on the fetched result,
 and tpubz's ``DeviceBlockEncoder(1).encode_block_devrefine`` fed the same
 tuple as JAX arrays, with tpubz's histogram in trans_out[8] built by its
-own ``chunk_hist`` (so tpubz's BWT never compiles). The inputs: random
+own ``chunk_hist`` (so tpubz's BWT never compiles); the port's encoder
+takes no histogram: its passes read the symbols. The inputs: random
 bytes, a period of 4, six symbols, every byte value in order (symbols >= 256)
 and one byte. A payload whose bit count on the device differs from the
 refinement's raises.
@@ -73,18 +74,22 @@ def test_devrefine_matches_tpubz(name, tpubz_native):
     assert got.pack() == (tpubz_pack_bits(*want.arrays()), want.bit_len)
 
 
-def test_devrefine_takes_a_batch_row_and_its_histogram(tpubz_native):
-    """A row of the batch types (uint16 symbols, int32 length and
-    frequencies) with its histogram from chunk_hist_batch gives the
-    one-block bytes."""
+BATCH = ("all256", "abcd", "random")
+
+
+@pytest.mark.parametrize("row", range(len(BATCH)))
+def test_devrefine_takes_a_batch_row(row, tpubz_native):
+    """A row of the batch types (uint16 symbols a row of a [B, OUT] tensor,
+    int32 length and frequencies), its symbols a view at the row's offset,
+    gives that block's one-block bytes."""
     enc = DeviceBlockEncoder(1, device="cpu")
-    key, syms, rle2_len, freqs, used = _transformed("all256")
-    rows = torch.stack([syms, syms]).to(torch.uint16)
-    lengths = torch.stack([rle2_len, rle2_len]).to(torch.int32)
-    hist = huffman_dev.chunk_hist_batch(rows, lengths)
-    row = (key, rows[1], lengths[1], freqs.to(torch.int32), used)
-    got = enc.encode_block_devrefine(row, CRC, hist=hist[1]).pack()
-    assert got == enc.emit_block(*enc.fetch(_transformed("all256")), CRC).pack()
+    outs = [_transformed(name) for name in BATCH]
+    syms = torch.stack([o[1] for o in outs]).to(torch.uint16)
+    lengths = torch.stack([o[2] for o in outs]).to(torch.int32)
+    key, _, _, freqs, used = outs[row]
+    got = enc.encode_block_devrefine((key, syms[row], lengths[row], freqs.to(torch.int32), used),
+                                     CRC).pack()
+    assert got == enc.emit_block(*enc.fetch(outs[row]), CRC).pack()
 
 
 def test_devrefine_raises_on_a_wrong_bit_count(monkeypatch, tpubz_native):
@@ -107,12 +112,13 @@ def test_devrefine_raises_on_a_wrong_bit_count(monkeypatch, tpubz_native):
 
 def test_stage_probe_devrefine_runs_at_level_1_on_cpu(tpubz_native):
     """The probe's device refine anatomy at level 1 with the plain versions:
-    every block timed, a profile of the calls."""
+    every block timed, a pass's host µs by part, a profile of the calls."""
     from tpubz_torch import stage_probe
 
     d = bytes(np.random.default_rng(5).integers(0, 8, 150_000, dtype=np.uint8))
     out = stage_probe.devrefine_anatomy(d, 1, "cpu", top=5)
     assert out["blocks"] == 2 and len(out["top_own_time"]) == 5
+    assert out["passes"] >= 8 and set(out["pass_host_us"]) == {"upload", "launch", "fetch", "trees"}
     assert out["ms_per_block"]["min"] > 0 and out["profiled_ms_per_block_median"] > 0
     assert any("encode_block_devrefine" in r["function"] for r in
                stage_probe.devrefine_anatomy(d, 1, "cpu", top=1000)["top_own_time"])

@@ -1,12 +1,19 @@
 """The decompositions of the device refine kernels (csrc/huffman_dev.cu,
 csrc/bitpack.cu), emulated in numpy on the CPU with the kernels' index math,
-against tpubz's chunk_hist, refine_pass, pack_bits_device and pack_payload.
+against tpubz's chunk_hist, refine_pass (over its chunk_hist), pack_bits_device
+and pack_payload.
 
 The CUDA kernels run only on the card. Here each is run CTA by CTA, warp by
 warp and thread by thread as its source writes it: chunk_hist_rows' warp a
-group with the row's lanes; refine_rows' grid-stride loop over the groups,
-each lane's nine bins, the strict-< scan, the CTA's frequencies in shared
-memory added to the global ones; pack_tiles' tiles taken by ticket, the
+group with the row's lanes; refine_symbols' grid-stride loop over warp
+tiles of 16 groups (consecutive tiles to consecutive CTAs; a tile past the
+stream only writes its selectors 0) staged with the symbols past the
+stream as 258, each
+lane's 25 symbols' six lengths unpacked from their bytes and summed,
+the pair's shuffle, the strict-<
+scan, one count a symbol in the CTA's frequencies, the CTAs' sums added to
+the scratch in a random order and moved out by the last CTA's ticket, which
+leaves the scratch zero for the next pass; pack_tiles' tiles taken by ticket, the
 threads' consecutive fields, the block scan and the look-back as a running
 offset, and each thread's register that gathers the fields of one word
 before its atomicOr (with a field that opens the next word), in 32-bit
@@ -61,47 +68,101 @@ def test_chunk_hist_rows_matches_tpubz(warps):
     assert np.array_equal(chunk_hist_rows(s, lengths, warps), want)
 
 
-def refine_rows(hist, lens, tc, ctas, warps):
-    """csrc/huffman_dev.cu:refine_rows on a grid of ``ctas`` CTAs of
-    ``warps`` warps (the call caps the grid at 264)."""
-    nsel = hist.shape[0]
+WARP_GROUPS = 16  # groups a warp takes at once, two lanes a group
+LANE_SYMS = GROUP // 2
+SUMS = TABLES * ALPHA
+
+
+def refine_symbols(syms, rle2_len, lens, tc, ctas, warps, scratch, rng):
+    """csrc/huffman_dev.cu:refine_symbols over a grid of at most ``ctas``
+    CTAs of ``warps`` warps (the call caps the grid at 132 and gives each
+    CTA 16 warps), the CTAs in ``rng``'s order. ``scratch``: the int64
+    words the CTAs add their sums into (1,548, then the ticket), zero before
+    and left zero. Returns (sel, rfreq)."""
+    out = syms.size
+    nsel = -(-out // GROUP)
+    tiles = -(-nsel // WARP_GROUPS)
+    grid = min(-(-tiles // warps), ctas)
+    # the shared lengths: two words a symbol, a byte a table; symbol 258 (a
+    # lane past the stream) has none; tables past tc none
+    pk = np.zeros((ALPHA + 1, 2), np.int64)
+    for t in range(tc):
+        pk[:ALPHA, t >> 2] |= (lens[t].astype(np.int64) & 0xFF) << (8 * (t & 3))
+    length = min(rle2_len, out)
     sel = np.full(nsel, -1, np.int64)
-    rfreq = np.zeros((TABLES, ALPHA), np.int64)
-    stride = ctas * warps
-    for cta in range(ctas):
-        s_rfreq = np.zeros((TABLES, ALPHA), np.int64)
+    rfreq = np.full((TABLES, ALPHA), -1, np.int64)
+    for cta in rng.permutation(grid):
+        s_rfreq = np.zeros(SUMS, np.int64)
         for warp in range(warps):
-            for g in range(cta * warps + warp, nsel, stride):
-                # lane l holds bins l, l + 32, ..., its partial costs reduced
-                # across the warp
-                partial = np.zeros((WARP, TABLES), np.int64)
+            for tile in range(warp * grid + cta, tiles, grid * warps):
+                base = tile * WARP_GROUPS * GROUP
+                if base >= length:  # past the stream: no symbol, table 0
+                    g = tile * WARP_GROUPS + np.arange(WARP_GROUPS)
+                    sel[g[g < nsel]] = 0
+                    continue
+                pos = base + np.arange(WARP_GROUPS * GROUP)
+                staged = np.full(pos.size, ALPHA, np.int64)
+                live = pos < length
+                staged[live] = np.minimum(syms[pos[live]], ALPHA)
+                mine = staged.reshape(WARP, LANE_SYMS)  # lane l: group l // 2, half l % 2
+                words = pk[mine]  # one 8-byte load a symbol
+                c = np.stack([((words[:, :, t >> 2] >> (8 * (t & 3))) & 0xFF).sum(1)
+                              for t in range(TABLES)], 1)
+                c = c + c[np.arange(WARP) ^ 1]  # the pair's shuffle
                 for lane in range(WARP):
-                    for j in range(-(-ALPHA // WARP)):
-                        s = lane + WARP * j
-                        if s < ALPHA:
-                            partial[lane] += hist[g, s] * lens[:, s]
-                cost = partial.sum(0)
-                best = 0
-                for t in range(1, TABLES):
-                    if t < tc and cost[t] < cost[best]:
-                        best = t
-                sel[g] = best
-                s_rfreq[best] += hist[g]
-        rfreq += s_rfreq  # the CTA's non-zero sums by atomics
+                    best = 0
+                    for t in range(1, TABLES):
+                        if t < tc and c[lane, t] < c[lane, best]:
+                            best = t
+                    g = tile * WARP_GROUPS + lane // 2
+                    if lane % 2 == 0 and g < nsel:
+                        sel[g] = best
+                    for sym in mine[lane]:
+                        if sym < ALPHA:
+                            s_rfreq[best * ALPHA + sym] += 1
+        scratch[:SUMS] += s_rfreq  # the CTA's non-zero sums by atomics
+        ticket = scratch[SUMS]
+        scratch[SUMS] += 1
+        if ticket == grid - 1:  # the last CTA: the sums read and zeroed, the ticket re-armed
+            rfreq = scratch[:SUMS].reshape(TABLES, ALPHA).copy()
+            scratch[:] = 0
     return sel, rfreq
 
 
-@pytest.mark.parametrize("ctas,warps", [(1, 1), (3, 2), (264, 16)])
+OUT_R = WARP_GROUPS * GROUP * 7 + 13  # 113 groups, 8 warp tiles, the last one short
+
+
+@pytest.mark.parametrize("ctas,warps", [(1, 1), (3, 2), (132, 1), (132, 16)])
 @pytest.mark.parametrize("tc", [2, 4, 6])
-def test_refine_rows_matches_tpubz(tc, ctas, warps):
-    rng = np.random.default_rng(10 * tc + ctas)
-    hist = np.asarray(thd.chunk_hist(jnp.asarray(_syms(tc)), jnp.int32(1200)))
+def test_refine_symbols_matches_tpubz(tc, ctas, warps):
+    """Two passes on one scratch (as a block's passes run), each equal to
+    tpubz's refine_pass over its chunk_hist, the scratch zero after each."""
+    rng = np.random.default_rng(10 * tc + ctas + warps)
+    s = _syms(tc, OUT_R)
+    scratch = np.zeros(SUMS + 1, np.int64)
+    hist = thd.chunk_hist(jnp.asarray(s), jnp.int32(OUT_R - 40))
+    for _ in range(2):
+        lens = rng.integers(1, 18, (TABLES, ALPHA)).astype(np.int32)
+        lens[tc:] = 0  # past the count, cheapest, never chosen
+        if tc > 2:
+            lens[2] = lens[1]  # a tie: table 1 wins it
+        ts, tr = thd.refine_pass(hist, jnp.asarray(lens), jnp.int32(tc))
+        sel, rfreq = refine_symbols(s, OUT_R - 40, lens, tc, ctas, warps, scratch, rng)
+        assert np.array_equal(sel, np.asarray(ts)) and np.array_equal(rfreq, np.asarray(tr))
+        assert not scratch.any()
+
+
+@pytest.mark.parametrize("rle2_len", [1, 49, 50, 51, 777, OUT_R])
+def test_refine_symbols_stream_lengths(rle2_len):
+    """A group's edges and the last warp tile's partial group: lanes past
+    the stream stage symbol 258, which costs nothing and counts nowhere."""
+    rng = np.random.default_rng(rle2_len)
+    s = _syms(rle2_len, OUT_R)
     lens = rng.integers(1, 18, (TABLES, ALPHA)).astype(np.int32)
-    lens[tc:] = 0  # past the count, cheapest, never chosen
-    if tc > 2:
-        lens[2] = lens[1]  # a tie: table 1 wins it
-    ts, tr = thd.refine_pass(jnp.asarray(hist), jnp.asarray(lens), jnp.int32(tc))
-    sel, rfreq = refine_rows(hist, lens, tc, min(ctas, -(-hist.shape[0] // warps)), warps)
+    scratch = np.zeros(SUMS + 1, np.int64)
+    ts, tr = thd.refine_pass(thd.chunk_hist(jnp.asarray(s), jnp.int32(rle2_len)),
+                             jnp.asarray(lens), jnp.int32(6))
+    sel, rfreq = refine_symbols(s, rle2_len, lens, 6, 3, 2, scratch, rng)
     assert np.array_equal(sel, np.asarray(ts)) and np.array_equal(rfreq, np.asarray(tr))
 
 

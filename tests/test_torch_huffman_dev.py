@@ -2,9 +2,10 @@
 the CPU, tolerance 0 (the codec is integer).
 
 Seeded numpy inputs go through tpubz's jitted functions on the JAX CPU
-backend (``chunk_hist``, ``chunk_hist_batch``, ``refine_pass``,
-``pack_payload``, ``pack_bits_device``) and through the port's wrappers,
-which run their plain versions for CPU tensors; whole arrays are compared,
+backend (``chunk_hist``, ``chunk_hist_batch``, ``refine_pass`` over
+``chunk_hist``, ``pack_payload``, ``pack_bits_device``) and through the
+port's wrappers (``refine_pass`` over the symbols themselves), which run
+their plain versions for CPU tensors; whole arrays are compared,
 pad rows and pad words included. Symbol streams hold the symbols 256 and
 257 (RUNA/RUNB over rank 255, and the EOB); lengths cover one symbol,
 49, 50 and 51 (a group's edges) and lengths that are no multiple of 50.
@@ -75,28 +76,29 @@ def test_chunk_hist_batch_matches_tpubz():
         assert torch.equal(got[b], huffman_dev.chunk_hist(_t(s[b], np.int32), int(n)))
 
 
-def _hist(seed, rle2_len=1500):
-    s = _syms(seed)
-    return np.asarray(thd.chunk_hist(jnp.asarray(s), jnp.int32(rle2_len)))
-
-
-def _refine_both(hist, lens, tc):
-    ts, tr = thd.refine_pass(jnp.asarray(hist), jnp.asarray(lens), jnp.int32(tc))
-    ps, pr = huffman_dev.refine_pass(_t(hist), _t(lens), tc)
+def _refine_both(s, rle2_len, lens, tc):
+    """tpubz's pass over its histogram of the symbols, and the port's over
+    the symbols, uint16 with a 0-d int64 length and int32 with a host int
+    (the two must agree)."""
+    hist = thd.chunk_hist(jnp.asarray(s), jnp.int32(rle2_len))
+    ts, tr = thd.refine_pass(hist, jnp.asarray(lens), jnp.int32(tc))
+    ps, pr = huffman_dev.refine_pass(_t(s), torch.tensor(rle2_len), _t(lens), tc)
     assert ps.dtype == torch.int8 and pr.dtype == torch.int32
-    return (np.asarray(ts), np.asarray(tr)), (ps.numpy(), pr.numpy())
+    assert ps.shape == (huffman_dev.nsel_cap(s.size),)
+    qs, qr = huffman_dev.refine_pass(_t(s, np.int32), rle2_len, _t(lens), tc)
+    assert torch.equal(ps, qs) and torch.equal(pr, qr)
+    return (np.asarray(ts), np.asarray(tr)), (ps.numpy(), pr.numpy()), np.asarray(hist)
 
 
 @pytest.mark.parametrize("tc", [2, 3, 4, 5, 6])
 def test_refine_pass_matches_tpubz(tc):
-    """The whole selector and frequency arrays (the all-zero rows past the
-    stream select table 0) for each table count; the rows of lens past it
-    hold stale 15s and never win."""
+    """The whole selector and frequency arrays (the groups past the stream
+    select table 0) for each table count; the rows of lens past it hold
+    stale 15s and never win."""
     rng = np.random.default_rng(tc)
-    hist = _hist(tc)
     lens = rng.integers(1, 18, (6, 258)).astype(np.int32)
     lens[tc:] = 15
-    (ts, tr), (ps, pr) = _refine_both(hist, lens, tc)
+    (ts, tr), (ps, pr), hist = _refine_both(_syms(tc), 1500, lens, tc)
     assert np.array_equal(ps, ts) and np.array_equal(pr, tr)
     assert (ps[30:] == 0).all() and ps.max() < tc
     assert np.array_equal(pr.sum(0), hist.sum(0))
@@ -107,13 +109,25 @@ def test_refine_pass_ties_go_to_the_lowest_table():
     one, as tpubz's argmin does; a table past the count that would be
     cheapest is never chosen."""
     rng = np.random.default_rng(7)
-    hist = _hist(7)
     lens = rng.integers(1, 18, (6, 258)).astype(np.int32)
     lens[3] = lens[1]
     lens[5] = 0  # cheapest of all, but past the table count
-    (ts, tr), (ps, pr) = _refine_both(hist, lens, 5)
+    (ts, tr), (ps, pr), _ = _refine_both(_syms(7), 1500, lens, 5)
     assert np.array_equal(ps, ts) and np.array_equal(pr, tr)
     assert (ps == 1).any() and not (ps == 3).any() and not (ps == 5).any()
+
+
+@pytest.mark.parametrize("rle2_len", [1, 49, 50, 51, 777, OUT])
+def test_refine_pass_stream_lengths(rle2_len):
+    """A group's edges and a partial last group: the symbols past the
+    stream add nothing and their groups select 0; rows past the count hold
+    zero lengths (cheapest, never chosen)."""
+    rng = np.random.default_rng(rle2_len)
+    lens = rng.integers(1, 18, (6, 258)).astype(np.int32)
+    lens[4:] = 0
+    (ts, tr), (ps, pr), hist = _refine_both(_syms(30 + rle2_len), rle2_len, lens, 4)
+    assert np.array_equal(ps, ts) and np.array_equal(pr, tr)
+    assert (ps[huffman_dev.nsel_cap(rle2_len):] == 0).all() and int(pr.sum()) == rle2_len
 
 
 def _fields(seed, m):
@@ -262,13 +276,23 @@ def test_wrappers_reject_what_they_do_not_take():
         huffman_dev.chunk_hist(s.to(torch.int64), 10)
     with pytest.raises(TypeError):
         huffman_dev.chunk_hist_batch(s, torch.tensor([10]))
-    hist = huffman_dev.chunk_hist(s, 100)
     lens = torch.ones(6, 258, dtype=torch.int32)
     for tc in (1, 7):
         with pytest.raises(ValueError):
-            huffman_dev.refine_pass(hist, lens, tc)
+            huffman_dev.refine_pass(s, 100, lens, tc)
     with pytest.raises(TypeError):
-        huffman_dev.refine_pass(hist, lens[:5], 2)
+        huffman_dev.refine_pass(s, 100, lens[:5], 2)
+    with pytest.raises(TypeError):
+        huffman_dev.refine_pass(s.to(torch.int64), 100, lens, 2)
+    with pytest.raises(TypeError):
+        huffman_dev.refine_pass(s, 100.0, lens, 2)
+    passes = huffman_dev.RefinePasses(s, 100)
+    with pytest.raises(ValueError):
+        passes.run(np.full((6, 258), 256), 2, 2)
+    with pytest.raises(ValueError):
+        passes.launch(7)
+    with pytest.raises(TypeError):
+        huffman_dev.RefinePasses(s.to(torch.int64), 100)
     with pytest.raises(TypeError):
         huffman_dev.pack_payload(s, 100, torch.zeros(3, dtype=torch.int8), lens, lens)
     with pytest.raises(ValueError):

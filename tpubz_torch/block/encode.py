@@ -40,6 +40,7 @@ PyTorch runs eagerly and the card sits on PCIe.
 from __future__ import annotations
 
 import contextlib
+import time
 
 import numpy as np
 import torch
@@ -48,7 +49,7 @@ from ..format.constants import BLOCK_MAGIC, MAX_ALPHA_SIZE, MAX_GROUPS, group_co
 from ..hostref.bitio import BitAccum
 from ..hostref.huffman import c_init_tables, huffman_emit_headers, mtf_selectors
 from ..kernels.compact import HI_CAP, rle2_compact
-from ..kernels.huffman_dev import chunk_hist, nsel_cap, pack_payload, refine_pass
+from ..kernels.huffman_dev import RefinePasses, nsel_cap, pack_payload
 from ..kernels.mtf import CHUNK as MTF_CHUNK
 from ..kernels.mtf import mtf_ranks
 from ..kernels.rle2 import rle2_encode_used
@@ -168,6 +169,12 @@ class DeviceBlockEncoder:
         # since the caching allocator reuses freed device memory only on the
         # stream it was allocated on
         self.stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+        # the device refine encoder's host microseconds, summed over its
+        # blocks' passes (devrefine_tables): copying a pass's lengths up
+        # (upload), the kernel's call (launch), enqueueing the results' copy
+        # and waiting for it (fetch), the six tree builds (trees), and the
+        # passes run
+        self.devrefine_host_us = dict.fromkeys(("upload", "launch", "fetch", "trees", "passes"), 0)
 
     def upload(self, rle1_block: np.ndarray) -> torch.Tensor:
         """The block on the device, zero-padded to N: uint8[N]."""
@@ -299,32 +306,39 @@ class DeviceBlockEncoder:
         self.stream.wait_stream(torch.cuda.current_stream(self.device))
         return torch.cuda.stream(self.stream)
 
-    def devrefine_tables(self, hist: torch.Tensor, rle2_len: int, freqs: np.ndarray,
+    def devrefine_tables(self, syms: torch.Tensor, rle2_len_d, rle2_len: int, freqs: np.ndarray,
                          alpha: int):
         """The refinement of one block with its per-group costs and
         frequencies on the device: C bzip2's initial tables, then passes of
-        ``refine_pass``, each followed on the host by the code lengths of
-        the pass's frequencies (the native tree builds) and the exact size
-        of what the block would emit; the smallest snapshot wins, and the
-        passes stop after the fourth at the first that does not shrink it.
-        The order of ``refine.cpp`` and of tpubz's ``encode_block_devrefine``.
+        ``refine_pass`` over the block's symbols (``syms``, the first
+        ``rle2_len`` the stream; ``rle2_len_d`` that length as the transform
+        left it on the device), each followed on the host by the code
+        lengths of the pass's frequencies (the native tree builds) and the
+        exact size of what the block would emit; the smallest snapshot wins,
+        and the passes stop after the fourth at the first that does not
+        shrink it. The order of ``refine.cpp`` and of tpubz's
+        ``encode_block_devrefine``. The block's buffers are allocated once
+        (``RefinePasses``); a pass copies its lengths up through pinned
+        memory, launches one kernel and waits for its selectors and
+        frequencies, and adds its host microseconds to ``devrefine_host_us``.
 
         Returns (selectors int64[nsel], lengths int64[6, 258], rfreq
-        int64[6, 258], table count, passes run). Each pass fetches its
-        selectors and frequencies into pinned host buffers behind one event."""
+        int64[6, 258], table count, passes run)."""
         tc = group_count_for(rle2_len)
         nsel = nsel_cap(rle2_len)
         lens = c_init_tables(freqs.astype(np.int64), tc, alpha)
+        passes_d = RefinePasses(syms, rle2_len_d)
         best = None
         stale = 0
         passes = 0
+        trees_us = 0
         for it in range(huffman_iters()):
-            lens_d = torch.from_numpy(lens.astype(np.int32)).to(self.device)
-            sel_d, rfreq_d = refine_pass(hist, lens_d, tc)
-            sel, rfreq = (a.astype(np.int64) for a in self._fetch_now(sel_d[:nsel], rfreq_d))
+            sel, rfreq = (a.astype(np.int64) for a in passes_d.run(lens, tc, nsel))
             passes += 1
-            for t in range(tc):
-                lens[t, :alpha] = code_lengths_native(rfreq[t], alpha)
+            t = time.perf_counter()
+            for t_ in range(tc):
+                lens[t_, :alpha] = code_lengths_native(rfreq[t_], alpha)
+            trees_us += int((time.perf_counter() - t) * 1e6)
             # the exact bits of this snapshot: the payload as rfreq x the new
             # lengths, the unary selectors, the length deltas, the origins
             payload = int((rfreq[:tc, :alpha] * lens[:tc, :alpha]).sum())
@@ -338,34 +352,35 @@ class DeviceBlockEncoder:
                 stale += 1
             if it >= 3 and stale >= 1:
                 break
+        for k, us in passes_d.host_us.items():
+            self.devrefine_host_us[k] += us
+        self.devrefine_host_us["trees"] += trees_us
+        self.devrefine_host_us["passes"] += passes
         _, sel, lens, rfreq = best
         return sel, lens, rfreq, tc, passes
 
-    def encode_block_devrefine(self, trans_out, crc: int, hist: torch.Tensor | None = None):
+    def encode_block_devrefine(self, trans_out, crc: int):
         """One block's packed bits (a ``BitAccum``) from a ``transform``
         result, with the refinement's per-group costs and frequencies and
         the payload's packing on the device (``kernels/huffman_dev.py``).
         The bytes equal ``emit_block``'s on the fetched result.
 
         trans_out: (key, syms, rle2_len, freqs, used) on the device, the
-        one-block transform's or a row of the batched one's. ``hist``: the
-        block's ``chunk_hist``, when the caller built it (for a batch's rows
-        in one ``chunk_hist_batch`` launch, as tpubz's transform hands its
-        encoder trans_out[8]); else it is built here. Only the scalars, the
+        one-block transform's or a row of the batched one's (its symbols a
+        row of the batch's [B, OUT] tensor). Only the scalars, the
         frequencies and the used map, each pass's selectors and frequencies
         and the payload's words cross to the host. A payload whose bit
         count on the device differs from the host's raises RuntimeError."""
         key_d, syms_d, rle2_len_d, freqs_d, used_d = trans_out[:5]
         with self._on_stream():
-            if hist is None:
-                hist = chunk_hist(syms_d, rle2_len_d)
             (small,) = self._fetch_now(_small_vector(key_d, rle2_len_d, freqs_d, used_d))
             if getattr(trans_out, "bwt", None) is not None:
                 trans_out.bwt.finish()  # the wait has passed it, as a fetch's does
             key, rle2_len = int(small[0]), int(small[1])
             freqs, used = small[2:260], small[260:] != 0
             alpha = int(used.sum()) + 2
-            sel, lens, rfreq, tc, _ = self.devrefine_tables(hist, rle2_len, freqs, alpha)
+            sel, lens, rfreq, tc, _ = self.devrefine_tables(syms_d, rle2_len_d, rle2_len, freqs,
+                                                            alpha)
             payload_bits = int((rfreq[:tc, :alpha] * lens[:tc, :alpha]).sum())
             acc = BitAccum()
             acc.put(BLOCK_MAGIC, 48)

@@ -120,3 +120,23 @@ def sidecar_overflow_block(size: int = 900_000) -> bytes:
     pairs = np.arange(256, dtype=np.uint8)
     one = np.stack(np.meshgrid(pairs, pairs, indexing="ij"), -1).tobytes()
     return (one * (size // len(one) + 1))[:size]
+
+
+def with_tied_tail(data: bytes, level: int) -> bytes:
+    """data plus a tail of all 256 byte values in order, cut so that the
+    stream's last block at ``level`` lies inside the tail and is a whole
+    number of its periods: every rotation of that block has 3,000-odd
+    equals (at level 9), as a file that ends in padding gives."""
+    from .format.constants import block_budget
+    from .hostref.rle1 import rle1_blocks
+
+    period = bytes(range(256))
+    reps = 4000  # more than one block: the last block starts inside the tail
+    while True:
+        out = data + period * reps
+        _, blocks = rle1_blocks(np.frombuffer(out, np.uint8), block_budget(level))
+        o0, o1, i0, _ = blocks[-1]
+        whole = (o1 - o0) // 256 * 256  # the tail has no runs: RLE1 leaves it as it is
+        if whole and i0 >= len(data):
+            return out[: len(out) - ((o1 - o0) - whole)]
+        reps += 2

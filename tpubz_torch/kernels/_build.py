@@ -74,15 +74,16 @@ SIGNATURES = {
                            ctypes.c_longlong, _INTS, _P],
     # syms, rle2_len, B, OUT, scratch, syms_u8, hi_packed, hi_count, stream
     "tpubz_stage_compact": [_P, _P, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P],
-    # n, N, sizes (out, 2 long longs: the next pointers' scratch bytes, the
-    # inverse's)
+    # n, N, sizes (out, 7 long longs: the next pointers' scratch bytes, the
+    # inverse's, its record's pinned words, log2 of its three splitter
+    # windows, the orbit's kernels a call)
     "tpubz_ibwt_sizes": [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)],
     # last, n, N, scratch, its bytes, nxt, launched (out), stream
     "tpubz_next_pointers": [_P, ctypes.c_int, ctypes.c_int, _P, ctypes.c_longlong, _P, _INTS, _P],
-    # last, key, n, N, scratch, its bytes, out, launched (out), rounds (out),
-    # stream
+    # last, key, n, N, scratch, its bytes, pinned record words, out, launched
+    # (out), stream
     "tpubz_bwt_inverse": [_P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, ctypes.c_longlong, _P,
-                          _INTS, _INTS, _P],
+                          _P, _INTS, _P],
     # keys, out, n, lo bit, hi bit, scratch, its bytes, launched (out), stream
     "tpubz_radix_sort": [_P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, ctypes.c_int,
                          _INTS, _P],
@@ -90,8 +91,12 @@ SIGNATURES = {
     "tpubz_radix_sizes": [ctypes.c_int, _INTS],
     # syms, their bytes, rle2_len, its bytes, B, OUT, hist, stream
     "tpubz_chunk_hist": [_P, ctypes.c_int, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P],
-    # hist, lens, table count, nsel, sel, rfreq, stream
-    "tpubz_refine_pass": [_P, _P, ctypes.c_int, ctypes.c_int, _P, _P, _P],
+    # syms, their bytes, rle2_len, its bytes, OUT, lens, table count, sel,
+    # rfreq, scratch, stream
+    "tpubz_refine_pass": [_P, ctypes.c_int, _P, ctypes.c_int, ctypes.c_int, _P, ctypes.c_int, _P,
+                          _P, _P, _P],
+    # (no arguments): the words of refine_pass's scratch
+    "tpubz_refine_scratch_words": [],
     # vals, bits, m, out words, scratch, words, total, stream
     "tpubz_pack_bits_device": [_P, _P, ctypes.c_int, ctypes.c_longlong, _P, _P, _P, _P],
     # syms, their bytes, rle2_len, its bytes, sel, codes, lens, m, out words,

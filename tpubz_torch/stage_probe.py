@@ -60,7 +60,10 @@ mixed corpus plus the edge blocks (``tpubz_torch.corpus``, as
 - ``devrefine`` (also alone with ``--mode devrefine``): the device refine
   encoder (``DeviceBlockEncoder.encode_block_devrefine``) on every block
   of the data after its transform: host ms a block without a profiler,
-  the refinement passes, and the functions with the most own time over
+  the refinement passes, a pass's host µs by part (``upload`` of its
+  lengths, ``launch`` of ``refine_pass``, ``fetch`` of its selectors and
+  frequencies with the wait, ``trees``: the six tree builds; from
+  the encoder's ``devrefine_host_us``), and the functions with the most own time over
   all blocks under ``cProfile`` (which slows every Python call it sees:
   read the shares, not the sums);
 - ``lean`` (also alone with ``--mode lean``): the full stage's two
@@ -696,30 +699,35 @@ def lean_fetch_costs(data: bytes, level: int, device) -> dict:
 
 def devrefine_anatomy(data: bytes, level: int, device, top: int = 20) -> dict:
     """Host time of encode_block_devrefine per block of ``data`` (the
-    transform done and drained first), and a cProfile of the same calls."""
+    transform done and drained first), a pass's host µs by part (copying
+    its lengths up, the kernel's call, the results' copy and its wait, the
+    six tree builds), and a cProfile of the same calls."""
     import cProfile
     import pstats
 
-    from .kernels import huffman_dev
-
     enc = DeviceBlockEncoder(level, device)
     prof = cProfile.Profile()
-    ms, profiled_ms, passes = [], [], 0
+    ms, profiled_ms = [], []
+    host_us = dict.fromkeys(enc.devrefine_host_us, 0)
     for blk, crc in _blocks(data, level):
         trans, _ = _timed(lambda: enc.transform(blk), device)
-        before = huffman_dev.REFINE_LAUNCHES
+        before = dict(enc.devrefine_host_us)
         _, t = _timed(lambda: enc.encode_block_devrefine(trans, crc), device)
         ms.append(t)
-        passes += huffman_dev.REFINE_LAUNCHES - before
+        for k, v in enc.devrefine_host_us.items():
+            host_us[k] += v - before[k]
         prof.enable()
         _, t = _timed(lambda: enc.encode_block_devrefine(trans, crc), device)
         prof.disable()
         profiled_ms.append(t)
+    passes = host_us["passes"]
     stats = pstats.Stats(prof).stats
     rows = sorted(stats.items(), key=lambda kv: -kv[1][2])[:top]
     return {
         "blocks": len(ms), "passes": passes,
         "ms_per_block": {"median": statistics.median(ms), "min": min(ms), "max": max(ms)},
+        # a pass's host µs by part, the mean over the unprofiled passes
+        "pass_host_us": {k: v / max(passes, 1) for k, v in host_us.items() if k != "passes"},
         "profiled_ms_per_block_median": statistics.median(profiled_ms),
         "top_own_time": [{"function": f"{os.path.basename(f)}:{line}({name})", "calls": nc,
                           "own_ms": tt * 1e3, "cumulative_ms": ct * 1e3}
