@@ -42,7 +42,9 @@ corrupt copy raising on both ranks; each rank must have launched all four
 batched kernels (the batched BWT, MTF and RLE2 and the compact form, held
 before against their plain versions and the one-block kernels on five
 level-9 rows at once) and no one-block kernel; then one rank on the same
-data for its MB/s. The device refine encoder ([devrefine]) encodes
+data for its MB/s (the compact form held at B = 1, 3, 4 and 5, on rows at
+an odd element offset, and 20 calls equal). The device refine encoder
+([devrefine]) encodes
 [path]'s blocks with DeviceBlockEncoder.transform and
 encode_block_devrefine, and again as rows of the batched transform, each
 row's symbols a view into the batch; both streams must equal [path]'s and
@@ -52,8 +54,13 @@ not, and no plain version run (the kernels are held first against their
 plain versions: the histograms on the corpus block, the edge blocks, the
 sidecar overflow block and the five batch rows, the refinement pass on
 those blocks' symbols for every table count and a forced tie and on each
-batch row, the packer on 2^20 seeded fields, the payload on each block's
-final tables). The lean chain ([lean]) runs
+batch row, the packer on 2^20 seeded fields (into more words than its
+tiles reach, and as views at odd element offsets), the payload on each
+block's final tables, with uint16 symbols and a device length and with
+int32 symbols and a host length, on the corpus block at stream lengths
+around a tile, and on each batch row with seeded tables; the packer, the
+payload and the compact form must each be one launch a call on the card,
+by torch.profiler). The lean chain ([lean]) runs
 DeviceBlockEncoder.transform(blk, lean=True) on [path]'s blocks and the
 sidecar overflow block, each fetch equal to the int16 form's field by
 field, and encode_block (which takes the lean chain) on [path]'s blocks,
@@ -189,6 +196,23 @@ def _bound(nbytes, ops):
     and ops int32 operations, whichever is larger."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _one_launch(run, kernel, name):
+    """torch.profiler's record of one call of run (stage_probe's
+    kernel_device_us), which must be one launch of `kernel`. A session
+    that traced no device event at all is taken again, up to three times:
+    the profiler, not the call, missed it."""
+    from tpubz_torch.stage_probe import kernel_device_us
+
+    for attempt in range(1, 4):
+        prof = kernel_device_us(run)
+        if prof["launches"]:
+            break
+    if prof["launches"] != 1 or not all(kernel in k for k in prof["kernels_us"]):
+        raise AssertionError(f"a {name} call ran {prof['kernels_launches']} on the card "
+                             f"(profiler sessions: {attempt})")
+    return prof
 
 
 def _no_reference_modules():
@@ -657,7 +681,7 @@ def chain_kernels(padded, n0, edges, rng):
         calls = module.LAUNCHES - before
         kernels = rle2.KERNEL_LAUNCHES - kernels_before  # RLE2's memset and kernel
         ms, plain_ms = _cuda_ms(run, 50), _cuda_ms(plain, 5)
-        prof = kernel_device_us(run)
+        prof = _one_launch(run, "compact_rows", name) if name == "compact" else kernel_device_us(run)
         result[name] = {"max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms, "bound": bound,
                         "device_us": prof["sum_us"]}
         extra = ""
@@ -873,9 +897,11 @@ def batch_kernels(corpus, edges, rng):
     csrc/mtf.cu and csrc/rle2.cu with the row as a grid dimension,
     csrc/compact.cu) against their plain versions on the card, exactly, on
     five level-9 rows at once (_batch_level9_rows); each row also equal to
-    the one-block kernels' output for it. Then each call's ms and the plain
-    version's (CUDA events), its device µs and launches (torch.profiler,
-    one call) and its bound; and the batched transform's ms per block at
+    the one-block kernels' output for it; the compact form also at B = 1, 3
+    and 4, on the rows as a view at an odd element offset, and 20 calls
+    equal. Then each call's ms and the plain version's (CUDA events), its
+    device µs and launches (torch.profiler, one call; the compact form must
+    be one kernel) and its bound; and the batched transform's ms per block at
     B = 1, 4 and 8 corpus blocks against the one-block chain on the same
     blocks. Returns per kernel max_abs_err, ms, plain_ms and bound."""
     from tpubz_torch.block.encode import block_n
@@ -924,6 +950,21 @@ def batch_kernels(corpus, edges, rng):
         raise AssertionError("rle2_encode_batch gave different outputs on a repeat")
     got = compact.stage_compact(syms, rle2_len)
     held("compact", "plain", got, compact.stage_compact_ref(syms, rle2_len))
+    for rows in (1, 3, 4):  # B = 1, 3, 4: the batch's first rows
+        held("compact", f"plain B={rows}", compact.stage_compact(syms[:rows], rle2_len[:rows]),
+             compact.stage_compact_ref(syms[:rows], rle2_len[:rows]))
+    # the rows a view at an odd element offset: every row off a 16-byte boundary
+    flat = torch.empty(B * (N + 8) + 9, dtype=torch.uint16, device=dev)
+    odd = flat[1: 1 + B * (N + 8)].view(B, N + 8)
+    odd.copy_(syms)
+    held("compact", "plain view_at_element_offset_1", compact.stage_compact(odd, rle2_len),
+         compact.stage_compact_ref(odd, rle2_len))
+    # the look-back's races and the scratch's reuse: 19 repeats equal the first
+    differing = sum(int((a.long() != b.long()).sum()) for _ in range(19)
+                    for a, b in zip(compact.stage_compact(syms, rle2_len), got))
+    _say("kernel", f"compact repeats B={B} calls=20 differing_entries={differing}")
+    if differing:
+        raise AssertionError("stage_compact gave different outputs on a repeat")
     hi_count = got[2].tolist()
     if max(hi_count) <= compact.HI_CAP:
         raise AssertionError(f"no row overflowed the sidecar: {hi_count}")
@@ -957,7 +998,7 @@ def batch_kernels(corpus, edges, rng):
             per_call = ((rle2.BATCH_KERNEL_LAUNCHES - before[1])
                         // max(rle2.BATCH_LAUNCHES - before[0], 1))
             extra = f"kernels_per_call={per_call} (the wrapper's count) "
-        prof = kernel_device_us(run)
+        prof = _one_launch(run, "compact_rows", name) if name == "compact" else kernel_device_us(run)
         result[name] = {"max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms, "bound": bound,
                         "device_us": prof["sum_us"]}
         _say("kernel", f"{name} B={B} N={N} kernel_ms={ms} plain_ms={plain_ms} "
@@ -1022,13 +1063,17 @@ def devrefine_kernels(corpus, edges):
     device length, and int32 with a host int) with C bzip2's initial tables
     for each table count 2..6, and once with two identical tables (a forced
     tie), and over each of the five batch rows (a view into the [B, OUT]
-    symbols); pack_bits on 2^20 seeded fields of 0 to 24 bits; pack_payload
-    on the blocks' final tables, its total equal to the refinement's count.
+    symbols); pack_bits on 2^20 seeded fields of 0 to 24 bits (also into
+    more words than its tiles reach, and as views at odd element offsets);
+    pack_payload on the blocks' final tables, its total equal to the
+    refinement's count, again with int32 symbols and a host length, on the
+    corpus block at stream lengths around a tile, and on each batch row
+    with seeded tables.
     Then on the corpus block (the five rows for the batch, the 2^20 fields
     for pack_bits) each call's ms and the plain version's (CUDA events;
     refine_pass as the encoder calls it: its block's RefinePasses.launch),
-    its device µs and launches (torch.profiler, one call; refine_pass must
-    be one kernel), torch.bincount's ms on the flat index for the
+    its device µs and launches (torch.profiler, one call; refine_pass,
+    pack_bits and pack_payload must each be one kernel), torch.bincount's ms on the flat index for the
     histograms, and the bound (refine_pass's also in the histogram's
     formulation). Returns per kernel max_abs_err, ms, plain_ms,
     library_ms, bound."""
@@ -1083,7 +1128,14 @@ def devrefine_kernels(corpus, edges):
              (words, total), H.pack_payload_ref(syms, rl_d, sel, codes, lens))
         if int(total) != bits:
             raise AssertionError(f"pack_payload on {name}: {int(total)} bits, refinement {bits}")
+        held("pack_payload", f"{name} int32_symbols host_length", H.pack_payload(
+            syms.int(), rl, sel, codes, lens), H.pack_payload_ref(syms.int(), rl, sel, codes, lens))
         inputs[name] = (syms, rl_d, rl, hist, freqs, alpha, (sel, codes, lens, bits))
+    syms0, _, _, _, _, _, tables0 = inputs["corpus_block0"]
+    for length in (0, 1, 4095, 4096, 4097, syms0.shape[0]):  # around a tile, and every lane
+        held("pack_payload", f"corpus_block0 rle2_len={length}",
+             H.pack_payload(syms0, length, *tables0[:3]),
+             H.pack_payload_ref(syms0, length, *tables0[:3]))
 
     data, n, row_names = _batch_level9_rows(corpus, edges, rng, dev)
     B, N = data.shape
@@ -1096,10 +1148,17 @@ def devrefine_kernels(corpus, edges):
     held("chunk_hist_batch", "one-block chunk_hist row by row", (bhist,), (one,))
     blens6 = np.random.default_rng(SEED + 13).integers(1, 18, (6, 258)).astype(np.int32)
     blens6 = torch.from_numpy(blens6).to(dev)
+    bcodes = torch.from_numpy((np.random.default_rng(SEED + 14).integers(0, 1 << 17, (6, 258))
+                               & ((1 << blens6.cpu().numpy()) - 1)).astype(np.int32)).to(dev)
+    bsel = torch.from_numpy(np.random.default_rng(SEED + 15).integers(
+        0, 6, H.nsel_cap(N + 8)).astype(np.int8)).to(dev)
     for b in range(B):
         held("refine_pass", f"batch_row_view {row_names[b]} table_count=5",
              H.refine_pass(bsyms[b], blens[b], blens6, 5),
              H.refine_pass_ref(bsyms[b], blens[b], blens6, 5))
+        held("pack_payload", f"batch_row_view {row_names[b]} seeded_tables",
+             H.pack_payload(bsyms[b], blens[b], bsel, bcodes, blens6),
+             H.pack_payload_ref(bsyms[b], blens[b], bsel, bcodes, blens6))
 
     m = 1 << 20
     fbits = rng.integers(0, 25, m).astype(np.int32)
@@ -1110,6 +1169,16 @@ def devrefine_kernels(corpus, edges):
     cap = (int(fbits.sum()) + 31) // 32 + 1
     held("pack_bits", f"seeded_fields_0_to_24_bits n={m} total_bits={int(fbits.sum())}",
          bitpack.pack_bits_device(vals, fb, cap), bitpack.pack_bits_device_ref(vals, fb, cap))
+    wide = (m // 4096 + 2) * 4096 + 4099  # words past every tile's lanes
+    held("pack_bits", f"seeded_fields out_words={wide}", bitpack.pack_bits_device(vals, fb, wide),
+         bitpack.pack_bits_device_ref(vals, fb, wide))
+    vbuf = torch.zeros(m + 8, dtype=torch.int32, device=dev)
+    bbuf = torch.zeros(m + 8, dtype=torch.int32, device=dev)
+    ov, ob = vbuf[1: 1 + m], bbuf[3: 3 + m]  # each its own alignment
+    ov.copy_(vals)
+    ob.copy_(fb)
+    held("pack_bits", "seeded_fields views_at_element_offsets_1_and_3",
+         bitpack.pack_bits_device(ov, ob, cap), bitpack.pack_bits_device_ref(ov, ob, cap))
 
     syms, rl_d, rl, hist, freqs, alpha, (sel, codes, lens, bits) = inputs["corpus_block0"]
     OUT = syms.shape[0]
@@ -1157,7 +1226,10 @@ def devrefine_kernels(corpus, edges):
     for name, (run, plain, library, bound, reps, what) in timed.items():
         ms, plain_ms = _cuda_ms(run, reps), _cuda_ms(plain, 3)
         library_ms = _cuda_ms(library, reps) if library else None
-        prof = kernel_device_us(run)
+        if name in ("pack_bits", "pack_payload"):
+            prof = _one_launch(run, "pack_tiles", name)
+        else:
+            prof = kernel_device_us(run)
         result[name] = {"max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
                         "library_ms": library_ms, "bound": bound, "device_us": prof["sum_us"]}
         extra = ""

@@ -138,7 +138,8 @@ def test_batch_entry_points_pass_pointers_as_void_p():
     assert _build.SIGNATURES["tpubz_bwt_batch_sizes"] == [ints, I, ctypes.POINTER(L)]
     assert _build.SIGNATURES["tpubz_mtf_ranks_batch"] == [P, P, I, I, I, P, P, P, P]
     assert _build.SIGNATURES["tpubz_rle2_batch"] == [P, P, I, I, P, P, P, P, P, P, L, ints, P]
-    assert _build.SIGNATURES["tpubz_stage_compact"] == [P, P, I, I, P, P, P, P, P]
+    assert _build.SIGNATURES["tpubz_stage_compact"] == [P, P, I, I, P, L, ctypes.c_uint, L, P, P,
+                                                        P, P]
 
 
 def test_builds_at_once_run_nvcc_once(tmp_path, build_dir, monkeypatch):

@@ -1306,3 +1306,296 @@ def test_lean_and_ibwt_wrappers_reject_what_the_kernels_do_not_take(cuda):
         ibwt.bwt_inverse_device(10, last, 10)
     with pytest.raises(ValueError):
         ibwt.next_pointers(torch.zeros((1 << 20) + 1, dtype=torch.uint8, device=cuda), (1 << 20) + 1)
+
+
+# The packing kernel (csrc/bitpack.cu) and the compact form (csrc/compact.cu):
+# one launch a call and no memset, on the stream's look-back scratch
+# (kernels/look_back.py).
+
+
+def _garbage_cache(cuda):
+    """Leave 64 MB of 0xFF bytes in the allocator's cache, so that the next
+    outputs start as garbage: a word or entry the kernel forgets shows."""
+    junk = torch.full((1 << 24,), -1, dtype=torch.int32, device=cuda)
+    del junk
+
+
+def _at_offset(arr, offset, cuda):
+    """A device view of the numpy array at element `offset` of a larger one."""
+    flat = np.zeros(arr.size + offset + 5, arr.dtype)
+    flat[offset: offset + arr.size] = arr.ravel()
+    return torch.from_numpy(flat).to(cuda)[offset: offset + arr.size].view(arr.shape)
+
+
+def _pack_fields(m, seed, zero_tile=None):
+    """m seeded fields of 0 to 24 bits (every 11th 24 bits, all ones), and
+    optionally tile `zero_tile`'s 4096 all of 0 bits: (vals int32, bits)."""
+    rng = np.random.default_rng(seed)
+    bits = rng.integers(0, 25, m).astype(np.int32)
+    bits[3::11] = 24
+    if zero_tile is not None:
+        bits[zero_tile * 4096: (zero_tile + 1) * 4096] = 0
+    vals = (rng.integers(0, 1 << 24, m) & ((1 << bits) - 1)).astype(np.uint32)
+    vals[bits == 24] = (1 << 24) - 1
+    return vals.view(np.int32), bits
+
+
+def _payload_case(out, seed):
+    """Seeded symbols < 258 (RUNA/RUNB runs), selectors and 6 x 258 tables
+    of 1 to 17 bits: (syms int64 numpy, sel int8, codes int32, lens int32)."""
+    from tpubz_torch.kernels import huffman_dev as H
+
+    rng = np.random.default_rng(seed)
+    s = rng.integers(0, 258, out)
+    s[rng.random(out) < 0.5] = rng.integers(0, 2)
+    lens = rng.integers(1, 18, (6, 258)).astype(np.int32)
+    codes = (rng.integers(0, 1 << 17, (6, 258)) & ((1 << lens) - 1)).astype(np.int32)
+    sel = rng.integers(0, 6, H.nsel_cap(out)).astype(np.int8)
+    return s, sel, codes, lens
+
+
+def _equal(got, want):
+    return all(g.dtype == w.dtype and torch.equal(g.long(), w.long()) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("m", [1, 15, 4095, 4096, 4097, 12_289])
+@pytest.mark.parametrize("offsets", [(0, 0), (1, 0), (3, 2), (2, 1)],
+                         ids=["aligned", "vals+1", "vals+3_bits+2", "vals+2_bits+1"])
+def test_pack_bits_on_card_edge_shapes(cuda, m, offsets):
+    """Fields at and around the tile edges (one field, a partial tile, a
+    tile, a tile and one, a tile of only 0-bit fields between two others),
+    the values and the lengths views at odd element offsets (their own
+    alignments), into fewer words than the stream (fields dropped), one
+    more word, and words past every tile's lanes: the plain version's words
+    and total, on outputs that start as garbage."""
+    from tpubz_torch.kernels import bitpack
+
+    vals, bits = _pack_fields(m, m, zero_tile=1 if m > 8192 else None)
+    v, b = _at_offset(vals, offsets[0], cuda), _at_offset(bits, offsets[1], cuda)
+    need = (int(bits.sum()) + 31) // 32
+    for cap in (max(1, need // 3), need + 1, (m // 4096 + 2) * 4096 + 4099):
+        _garbage_cache(cuda)
+        got = bitpack.pack_bits_device(v, b, cap)
+        assert _equal(got, bitpack.pack_bits_device_ref(v, b, cap)), cap
+
+
+@pytest.mark.parametrize("rle2_len", [0, 1, 1023, 1024, 1025, 4095, 4096, 4097, 20_008])
+@pytest.mark.parametrize("sym_dtype", [np.int32, np.uint16], ids=["i32", "u16"])
+@pytest.mark.parametrize("offset", [0, 1, 5])
+def test_pack_payload_on_card_edge_lengths(cuda, rle2_len, sym_dtype, offset):
+    """Stream lengths of 0, 1, around 1024 and around a tile (4096), and
+    every lane; int32 and
+    uint16 symbols, a view at an odd element offset; the length a host int
+    and a device int64 and int32 scalar: the plain version's words and
+    total."""
+    from tpubz_torch.kernels import huffman_dev as H
+
+    out = 20_008
+    s, sel, codes, lens = _payload_case(out, rle2_len + offset)
+    syms = _at_offset(s.astype(sym_dtype), offset, cuda)
+    tables = [torch.from_numpy(a).to(cuda) for a in (sel, codes, lens)]
+    for length in (rle2_len, torch.tensor(rle2_len, device=cuda),
+                   torch.tensor(rle2_len, dtype=torch.int32, device=cuda)):
+        _garbage_cache(cuda)
+        got = H.pack_payload(syms, length, *tables)
+        assert _equal(got, H.pack_payload_ref(syms, length, *tables)), length
+
+
+def test_pack_payload_out_of_table_lanes_are_empty_fields(cuda):
+    """A symbol >= 258 or a selector outside 0..5 in the stream gives a
+    field of 0 bits (no shift by 32, no read past the tables)."""
+    from tpubz_torch.kernels import bitpack, huffman_dev as H
+
+    out = 9_000
+    s, sel, codes, lens = _payload_case(out, 7)
+    s[5::97] = 258 + s[5::97] % 40
+    sel[3::7] = 6
+    sel[4::11] = -1
+    valid = (s < 258) & np.isin(sel[np.arange(out) // 50], range(6))
+    t = np.clip(sel[np.arange(out) // 50], 0, 5)
+    v = np.where(valid, codes[t, np.minimum(s, 257)], 0).astype(np.int32)
+    b = np.where(valid, lens[t, np.minimum(s, 257)], 0).astype(np.int32)
+    want = bitpack.pack_bits_device_ref(torch.from_numpy(v), torch.from_numpy(b),
+                                        H.payload_words_cap(out))
+    got = H.pack_payload(torch.from_numpy(s.astype(np.uint16)).to(cuda), out,
+                         *(torch.from_numpy(a).to(cuda) for a in (sel, codes, lens)))
+    assert _equal([g.cpu() for g in got], want)
+
+
+@pytest.mark.parametrize("OUT", [1, 15, 4096, 4103, 900_104])
+@pytest.mark.parametrize("offset", [0, 1, 7])
+def test_stage_compact_on_card_shapes_and_views(cuda, OUT, offset):
+    """Five rows (odd rows of syms_u8 off a 16-byte boundary when OUT is
+    not a multiple of 16), the rows a view at an odd element offset, rows
+    of stream length 0, 1, half, all and past the row (and a negative one),
+    and a row whose symbols >= 256 overflow the sidecar: the plain
+    version's bytes, sidecars and counts, on outputs that start as
+    garbage."""
+    from tpubz_torch.kernels import compact
+
+    B = 5
+    rng = np.random.default_rng(OUT + offset)
+    s = rng.choice([0, 1, 3, 255, 256, 257, 300], size=(B, OUT),
+                   p=[0.3, 0.2, 0.2, 0.1, 0.1, 0.05, 0.05]).astype(np.uint16)
+    lens = np.array([0, 1, OUT // 2, OUT, OUT + 5], np.int32)
+    if OUT < 10:
+        lens[0] = -3
+    syms = _at_offset(s, offset, cuda)
+    rl = torch.from_numpy(lens).to(cuda)
+    _garbage_cache(cuda)
+    got = compact.stage_compact(syms, rl)
+    want = compact.stage_compact_ref(syms, rl)
+    assert _equal(got, want)
+    if OUT == 900_104:
+        assert int(got[2].max()) > compact.HI_CAP
+
+
+def _three_calls(cuda):
+    """A pack_bits, a pack_payload and a stage_compact call of seeded sizes
+    on the current stream, with their plain versions: [(run, plain)]."""
+    from tpubz_torch.kernels import bitpack, compact, huffman_dev as H
+
+    vals, bits = _pack_fields(70_001, 3)
+    v, b = torch.from_numpy(vals).to(cuda), torch.from_numpy(bits).to(cuda)
+    cap = (int(bits.sum()) + 31) // 32 + 1
+    s, sel, codes, lens = _payload_case(50_000, 4)
+    syms = torch.from_numpy(s.astype(np.uint16)).to(cuda)
+    tables = [torch.from_numpy(a).to(cuda) for a in (sel, codes, lens)]
+    rows = torch.from_numpy(np.random.default_rng(5).choice(
+        [0, 2, 256, 257], size=(3, 30_008)).astype(np.uint16)).to(cuda)
+    rl = torch.tensor([30_008, 9, 17_000], dtype=torch.int32, device=cuda)
+    return [
+        (lambda: bitpack.pack_bits_device(v, b, cap), lambda: bitpack.pack_bits_device_ref(v, b, cap)),
+        (lambda: bitpack.pack_bits_device(v[:5000], b[:5000], 900),
+         lambda: bitpack.pack_bits_device_ref(v[:5000], b[:5000], 900)),
+        (lambda: H.pack_payload(syms, 40_000, *tables),
+         lambda: H.pack_payload_ref(syms, 40_000, *tables)),
+        (lambda: compact.stage_compact(rows, rl), lambda: compact.stage_compact_ref(rows, rl)),
+        (lambda: compact.stage_compact(rows[:1], rl[:1]),
+         lambda: compact.stage_compact_ref(rows[:1], rl[:1])),
+    ]
+
+
+def test_pack_and_compact_back_to_back_and_on_two_streams(cuda):
+    """Ten calls back to back on one stream with no wait between them
+    (large, small and batched calls, so each meets words the one before
+    used), then calls on two streams interleaved: every output equals the
+    plain version's, and each stream has a scratch of its own."""
+    from tpubz_torch.kernels import look_back
+
+    calls = _three_calls(cuda)
+    outs = [calls[k % len(calls)][0]() for k in range(10)]
+    torch.cuda.synchronize()
+    for k, got in enumerate(outs):
+        assert _equal(got, calls[k % len(calls)][1]()), k
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    outs = []
+    for k in range(10):
+        with torch.cuda.stream(streams[k % 2]):
+            outs.append(calls[k % len(calls)][0]())
+    torch.cuda.synchronize()
+    for k, got in enumerate(outs):
+        assert _equal(got, calls[k % len(calls)][1]()), k
+    scratches = []
+    for st in streams:
+        with torch.cuda.stream(st):
+            scratches.append(look_back.scratch_of(cuda))
+    assert scratches[0] is not None and scratches[1] is not None
+    assert scratches[0] is not scratches[1]
+
+
+def test_look_back_scratch_across_an_epoch_wrap(cuda):
+    """Calls across the epoch's wrap (kEpochMax back to 1) on one scratch,
+    of alternating sizes: every output equals the plain version's."""
+    from tpubz_torch.kernels import look_back
+
+    calls = _three_calls(cuda)
+    calls[0][0]()
+    sc = look_back.scratch_of(cuda)
+    sc.epoch = look_back.EPOCH_MAX - 3
+    seen = []
+    for k in range(8):
+        run, plain = calls[k % len(calls)]
+        got = run()
+        seen.append(sc.epoch)
+        assert _equal(got, plain()), k
+    assert look_back.EPOCH_MAX in seen and 1 in seen
+    assert look_back.scratch_of(cuda) is sc
+
+
+@pytest.mark.parametrize("kernel", ["pack_bits", "pack_payload", "stage_compact"])
+def test_pack_and_compact_are_one_launch_on_card(cuda, kernel):
+    """One call is one kernel on the card (no memset, no copy), by
+    torch.profiler, and counts one launch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpubz_torch.kernels import bitpack, compact, huffman_dev as H
+
+    run, _ = _three_calls(cuda)[{"pack_bits": 0, "pack_payload": 2, "stage_compact": 3}[kernel]]
+    counter = (compact, "LAUNCHES") if kernel == "stage_compact" else (bitpack, "LAUNCHES")
+    run()
+    torch.cuda.synchronize()
+    before = getattr(*counter), H.PAYLOAD_LAUNCHES
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    want = "compact_rows" if kernel == "stage_compact" else "pack_tiles"
+    assert len(names) == 1 and want in names[0], names
+    assert getattr(*counter) == before[0] + 1
+    assert H.PAYLOAD_LAUNCHES == before[1] + (kernel == "pack_payload")
+
+
+def test_pack_and_compact_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    """The wrappers' refusals, and the library's: no epoch 0, no scratch
+    smaller than the call's tiles, no words off a 16-byte boundary."""
+    import ctypes
+
+    from tpubz_torch.kernels import _build, bitpack, compact, huffman_dev as H
+
+    v = torch.zeros(100, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        bitpack.pack_bits_device(v, v[:99], 10)
+    with pytest.raises(TypeError):
+        bitpack.pack_bits_device(v.cpu(), v, 10)
+    with pytest.raises(ValueError):
+        bitpack.pack_bits_device(v[:0], v[:0], 10)
+    with pytest.raises(ValueError):
+        bitpack.pack_bits_device(v, v, 0)
+    tables = torch.zeros(6, 258, dtype=torch.int32, device=cuda)
+    sel = torch.zeros(2, dtype=torch.int8, device=cuda)
+    with pytest.raises(TypeError):
+        H.pack_payload(v.long(), 10, sel, tables, tables)
+    with pytest.raises(TypeError):
+        H.pack_payload(v, 10, sel.int(), tables, tables)
+    with pytest.raises(TypeError):
+        H.pack_payload(v, torch.tensor(10.0, device=cuda), sel, tables, tables)
+    rows = torch.zeros(2, 64, dtype=torch.uint16, device=cuda)
+    lens = torch.zeros(2, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        compact.stage_compact(rows.int(), lens)
+    with pytest.raises(TypeError):
+        compact.stage_compact(rows.t(), lens)
+    with pytest.raises(TypeError):
+        compact.stage_compact(rows, lens.long())
+    with pytest.raises(ValueError):
+        compact.stage_compact(rows[:0], lens[:0])
+    lib = _build.load()
+    scratch = torch.zeros(9, dtype=torch.int64, device=cuda)
+    words = torch.zeros(16, dtype=torch.int32, device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+    P = ctypes.c_void_p
+
+    def pack(epoch, capacity, at):
+        return lib.tpubz_pack_bits_device(P(v.data_ptr()), P(v.data_ptr()), 100, 8,
+                                          P(scratch.data_ptr()), capacity, epoch, 0,
+                                          P(words[at:].data_ptr()), P(scratch.data_ptr()),
+                                          P(stream))
+
+    assert pack(0, 8, 0) != 0 and pack(1 << 26, 8, 0) != 0  # epochs 1..2^26 - 1
+    assert pack(1, 0, 0) != 0  # a tile and no status word
+    assert pack(1, 8, 1) != 0  # words off a 16-byte boundary
+    torch.cuda.synchronize()

@@ -13,12 +13,14 @@ lane's 25 symbols' six lengths unpacked from their bytes and summed,
 the pair's shuffle, the strict-<
 scan, one count a symbol in the CTA's frequencies, the CTAs' sums added to
 the scratch in a random order and moved out by the last CTA's ticket, which
-leaves the scratch zero for the next pass; pack_tiles' tiles taken by ticket, the
-threads' consecutive fields, the block scan and the look-back as a running
-offset, and each thread's register that gathers the fields of one word
-before its atomicOr (with a field that opens the next word), in 32-bit
-arithmetic. Tiles and grids are small, so fields and words cross threads
-and tiles. Every comparison is exact: tolerance 0.
+leaves the scratch zero for the next pass; pack_tiles as
+tests/torch_pack_emulation.py runs it (tiles by ticket that zero their
+slices of the words, the threads' consecutive fields, the block scan, the
+look-back on a fresh scratch, and the words built from each tile's first
+bit, one OR a field's word, then stored whole or ORed where two tiles
+share them), in 32-bit arithmetic. Tiles and
+grids are small, so fields and words cross threads and tiles. Every
+comparison is exact: tolerance 0.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -27,8 +29,9 @@ import pytest
 from tpubz.kernels import huffman_dev as thd
 from tpubz.kernels.bitpack import pack_bits_device as t_pack_bits
 
+from torch_pack_emulation import Scratch, emulate_pack
+
 GROUP, ALPHA, TABLES, WARP = 50, 258, 6, 32
-MASK = 0xFFFFFFFF
 OUT = 1508  # 31 groups, the last 8 lanes short
 
 
@@ -166,41 +169,16 @@ def test_refine_symbols_stream_lengths(rle2_len):
     assert np.array_equal(sel, np.asarray(ts)) and np.array_equal(rfreq, np.asarray(tr))
 
 
-def pack_tiles(fields, m, out_words, threads, per):
-    """csrc/bitpack.cu:pack_tiles with tiles of threads x per fields.
-    ``fields(i)`` -> (value, bits) of lane i < m. Returns (words, total)."""
-    words = [0] * out_words
-    tile = threads * per
-    before = 0  # the look-back's result: the bits of the tiles before
-
-    def or_word(w, bits):
-        if bits and w < out_words:
-            words[w] |= bits
-
-    for t in range(-(-m // tile)):  # tickets in order
-        loaded = [[fields(i) if i < m else (0, 0)
-                   for i in range(t * tile + th * per, t * tile + th * per + per)]
-                  for th in range(threads)]
-        sums = [sum(b for _, b in f) for f in loaded]
-        offs = np.concatenate(([0], np.cumsum(sums)[:-1]))  # the block scan
-        for th in range(threads):
-            pos, cur, acc = before + int(offs[th]), -1, 0
-            for v, b in loaded[th]:
-                if b == 0:
-                    continue
-                w, end = pos >> 5, (pos & 31) + b
-                if w != cur:
-                    or_word(cur, acc)
-                    cur, acc = w, 0
-                if end <= 32:
-                    acc |= (v << (32 - end)) & MASK
-                else:
-                    or_word(w, acc | (v >> (end - 32)))
-                    cur, acc = w + 1, (v << (64 - end)) & MASK
-                pos += b
-            or_word(cur, acc)
-        before += sum(sums)
-    return np.array(words, np.uint32), before
+def pack_tiles(fields, m, out_words, threads, per, length=None):
+    """csrc/bitpack.cu:pack_tiles with tiles of threads x per fields, the
+    arrays on 16-byte boundaries (tests/torch_pack_emulation.py).
+    ``fields(i)`` -> (value, bits) of lane i < m, or of the stream's
+    ``length`` lanes (the payload form). Returns (words, total)."""
+    words, total, _ = emulate_pack(fields, m, out_words, threads=threads, per=per,
+                                   vec=4 if per % 4 == 0 else 1, length=length,
+                                   scratch=Scratch(-(-(m + 7) // (threads * per))), window=4,
+                                   seed=threads * per)
+    return words, total
 
 
 def _fields(seed, m):
@@ -239,10 +217,8 @@ def test_pack_tiles_payload_form_matches_tpubz(rle2_len):
                               jnp.asarray(codes), jnp.asarray(lens))
 
     def fields(i):
-        if i >= rle2_len:
-            return 0, 0
         t, sym = int(sel[i // GROUP]), int(s[i])
         return int(codes[t, sym]), int(lens[t, sym])
 
-    words, total = pack_tiles(fields, OUT, thd.payload_words_cap(OUT), 8, 16)
+    words, total = pack_tiles(fields, OUT, thd.payload_words_cap(OUT), 8, 16, length=rle2_len)
     assert np.array_equal(words, np.asarray(tw)) and total == int(tt)

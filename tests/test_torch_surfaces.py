@@ -316,3 +316,37 @@ def test_version_equals_tpubz():
     import tpubz
 
     assert tpubz_torch.__version__ == tpubz.__version__ == "0.1.0"
+
+
+@pytest.mark.parametrize("level,size", [(1, 450_000), (9, 5_000), (9, 0)],
+                         ids=["five_blocks", "one_block", "empty"])
+def test_last_decode_stats_match_tpubz(level, size):
+    """Every decompress sets last_decode_stats as tpubz does: the engine
+    ("native": the port has no numpy decoder), the blocks, equal to tpubz's
+    count, and parallel_candidates, an int from 0 to the stream's magic
+    hits (the count depends on the scanner thread's pace). Of a
+    concatenation, the last stream's."""
+    from tpubz.format.constants import BLOCK_MAGIC, FOOTER_MAGIC
+    from tpubz.stream import decode as tdecode
+
+    from tpubz_torch.native import find_magic2_native
+    from tpubz_torch.stream import decode as pdecode
+
+    data = np.random.default_rng(size).integers(0, 8, size, dtype=np.uint8).tobytes()
+    stream = compress_cpu(data, level)
+    assert tdecode.decompress(stream) == data
+    want = dict(tdecode.last_decode_stats)
+    pdecode.last_decode_stats.clear()
+    assert tpubz_torch.decompress(stream) == data
+    got = dict(pdecode.last_decode_stats)
+    hits, footers = find_magic2_native(np.frombuffer(stream, np.uint8), BLOCK_MAGIC, FOOTER_MAGIC)
+    candidates = [h for h in hits if 32 <= h < (footers[0] if footers.size else 1 << 62)]
+    assert set(got) == {"engine", "blocks", "parallel_candidates"}
+    assert got["engine"] == "native" and got["blocks"] == want["blocks"]
+    assert isinstance(got["parallel_candidates"], int)
+    assert 0 <= got["parallel_candidates"] <= len(candidates)
+    if size > 100_000:
+        assert got["blocks"] > 1
+    tail = compress_cpu(b"xyz" * 1000, 9)
+    assert tpubz_torch.decompress(stream + tail) == data + b"xyz" * 1000
+    assert pdecode.last_decode_stats["blocks"] == 1

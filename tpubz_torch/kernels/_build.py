@@ -72,8 +72,11 @@ SIGNATURES = {
     # cleared region and its bytes, launched (out), stream
     "tpubz_rle2_compact": [_P, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, _P,
                            ctypes.c_longlong, _INTS, _P],
-    # syms, rle2_len, B, OUT, scratch, syms_u8, hi_packed, hi_count, stream
-    "tpubz_stage_compact": [_P, _P, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P],
+    # syms, rle2_len, B, OUT, the stream's look-back scratch, its status
+    # words, the call's epoch, the previous call's status words, syms_u8,
+    # hi_packed, hi_count, stream
+    "tpubz_stage_compact": [_P, _P, ctypes.c_int, ctypes.c_int, _P, ctypes.c_longlong,
+                            ctypes.c_uint, ctypes.c_longlong, _P, _P, _P, _P],
     # n, N, sizes (out, 7 long longs: the next pointers' scratch bytes, the
     # inverse's, its record's pinned words, log2 of its three splitter
     # windows, the orbit's kernels a call)
@@ -97,12 +100,17 @@ SIGNATURES = {
                           _P, _P, _P],
     # (no arguments): the words of refine_pass's scratch
     "tpubz_refine_scratch_words": [],
-    # vals, bits, m, out words, scratch, words, total, stream
-    "tpubz_pack_bits_device": [_P, _P, ctypes.c_int, ctypes.c_longlong, _P, _P, _P, _P],
-    # syms, their bytes, rle2_len, its bytes, sel, codes, lens, m, out words,
-    # scratch, words, total, stream
-    "tpubz_pack_payload": [_P, ctypes.c_int, _P, ctypes.c_int, _P, _P, _P, ctypes.c_int,
-                           ctypes.c_longlong, _P, _P, _P, _P],
+    # vals, bits, m, out words, the look-back scratch, its status words, the
+    # epoch, the previous call's status words (as tpubz_stage_compact),
+    # words, total, stream
+    "tpubz_pack_bits_device": [_P, _P, ctypes.c_int, ctypes.c_longlong, _P, ctypes.c_longlong,
+                               ctypes.c_uint, ctypes.c_longlong, _P, _P, _P],
+    # syms, their bytes, rle2_len (device scalar or None), its bytes, the
+    # length when it is None, sel, codes, lens, m, out words, the look-back
+    # scratch as above, words, total, stream
+    "tpubz_pack_payload": [_P, ctypes.c_int, _P, ctypes.c_int, ctypes.c_longlong, _P, _P, _P,
+                           ctypes.c_int, ctypes.c_longlong, _P, ctypes.c_longlong, ctypes.c_uint,
+                           ctypes.c_longlong, _P, _P, _P],
 }
 
 _lock = threading.Lock()

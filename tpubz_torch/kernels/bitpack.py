@@ -8,12 +8,14 @@ an int32 tensor (PyTorch's uint32 has few kernels); ``words_to_bytes``
 views them as uint32 on the host.
 
 For a CUDA tensor ``pack_bits_device`` launches the hand-written kernel of
-``csrc/bitpack.cu`` on the current stream (one CTA a tile of 4096 fields:
-a block-wide scan of the lengths, a decoupled look-back across the tiles,
-``atomicOr`` into words the call zeroes); for a CPU tensor it runs the plain
-torch version ``pack_bits_device_ref``, tpubz's cumsum and two scatter-adds
-in int64 arithmetic. ``kernels/huffman_dev.py:pack_payload`` launches the
-same kernel with its fields gathered from the Huffman tables (``launch``).
+``csrc/bitpack.cu`` on the current stream, one launch and no memset (one CTA
+a tile of 4096 fields: its slice of the words zeroed, a block-wide scan of
+the lengths, a decoupled look-back across the tiles on the stream's scratch,
+``kernels/look_back.py``, and the tile's words built in shared memory and
+stored whole); for a CPU tensor it runs the plain torch version
+``pack_bits_device_ref``, tpubz's cumsum and two scatter-adds in int64
+arithmetic. ``kernels/huffman_dev.py:pack_payload`` launches the same kernel
+with its fields gathered from the Huffman tables (``launch``).
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ import threading
 import numpy as np
 import torch
 
-from . import _build
+from . import _build, look_back
 
 TILE = 4096  # fields one CTA of csrc/bitpack.cu takes (256 threads x 16)
 
@@ -58,23 +60,19 @@ def pack_bits_device_ref(vals: torch.Tensor, bits: torch.Tensor, out_words: int)
     return _as_int32_bits(words[:out_words]), total
 
 
-def launch(entry: str, args, m: int, out_words: int, device: torch.device):
+def launch(entry: str, head, m: int, out_words: int, device: torch.device):
     """Launch the packing kernel through the library's ``entry`` with
-    ``args`` (the pointers and sizes before its scratch), allocating the
-    scratch and the outputs: (words int32[out_words], total 0-d int64)."""
+    ``head`` (the pointers and sizes before m), allocating only the
+    outputs: (words int32[out_words], total 0-d int64). The scratch is the
+    stream's (``look_back.enqueue``)."""
     global LAUNCHES
     if not 1 <= m < 1 << 30 or out_words < 1:
         raise ValueError(f"the packing kernel takes 1 to 2^30 - 1 fields and a word or more, "
                          f"got {m} fields and {out_words} words")
-    tiles = -(-m // TILE)
-    scratch = torch.empty(tiles + 1, dtype=torch.int64, device=device)
-    words = torch.empty(out_words, dtype=torch.int32, device=device)
+    words = torch.empty(out_words, dtype=torch.int32, device=device)  # 16-byte aligned
     total = torch.empty((), dtype=torch.int64, device=device)
-    lib = _build.load()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(lib, entry)(*args, m, out_words, scratch.data_ptr(), words.data_ptr(),
-                                 total.data_ptr(), stream)
+    rc = look_back.enqueue(getattr(_build.load(), entry), device, look_back.status_words(m),
+                           (*head, m, out_words), (words.data_ptr(), total.data_ptr()))
     if rc != 0:
         raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")
     with _launch_lock:

@@ -12,10 +12,12 @@ with ``block.encode.uncompact_syms``; a row whose count exceeds the cap is
 fetched whole.
 
 For a CUDA tensor ``stage_compact`` launches the hand-written kernel of
-``csrc/compact.cu`` on the current stream (one CTA a tile of a row: the low
-bytes, a block-wide scan of the flags and a look-back across the row's
-tiles); for a CPU tensor it runs the plain torch version
-``stage_compact_ref``, tpubz's cumsum and scatter.
+``csrc/compact.cu`` on the current stream, one launch and no memset (one CTA
+a tile of a row: 16-byte loads of the symbols, the low bytes stored as whole
+words, a block-wide scan of the flags and a look-back across the row's tiles
+on the stream's scratch, ``kernels/look_back.py``; the row's last tile zeroes
+the sidecar past the count); for a CPU tensor it runs the plain torch
+version ``stage_compact_ref``, tpubz's cumsum and scatter.
 
 ``rle2_compact`` is the counterpart of ``tpubz/block/encode.py:
 _rle2_compact``, the lean form of the one-block chain: RLE2 of the MTF
@@ -43,11 +45,11 @@ import threading
 
 import torch
 
-from . import _build
+from . import _build, look_back
 from . import rle2
 
 HI_CAP = 8192  # sidecar entries a row (csrc/compact.cu: kHiCap)
-TILE = 4096  # symbols one CTA of csrc/compact.cu takes (256 threads x 16)
+TILE = 8192  # symbols one CTA of csrc/compact.cu takes (256 threads x 32)
 
 HI_NONE = 1 << 30  # a hi_pos entry past the count
 
@@ -99,17 +101,12 @@ def stage_compact(syms: torch.Tensor, rle2_len: torch.Tensor):
     if not 1 <= B <= 65535 or not 1 <= OUT < 1 << 29:
         raise ValueError(f"stage_compact takes 1 to 65535 rows of 1 to 2^29 symbols, got {B}x{OUT}")
     lengths = rle2_len.contiguous()
-    tiles = -(-OUT // TILE)
-    scratch = torch.empty(B * (tiles + 1), dtype=torch.int32, device=dev)
     syms_u8 = torch.empty(B, OUT, dtype=torch.uint8, device=dev)
-    hi_packed = torch.empty(B, HI_CAP, dtype=torch.int32, device=dev)
+    hi_packed = torch.empty(B, HI_CAP, dtype=torch.int32, device=dev)  # 16-byte aligned
     hi_count = torch.empty(B, dtype=torch.int32, device=dev)
-    lib = _build.load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.tpubz_stage_compact(syms.data_ptr(), lengths.data_ptr(), B, OUT,
-                                     scratch.data_ptr(), syms_u8.data_ptr(), hi_packed.data_ptr(),
-                                     hi_count.data_ptr(), stream)
+    rc = look_back.enqueue(_build.load().tpubz_stage_compact, dev, look_back.status_words(OUT, B, TILE),
+                           (syms.data_ptr(), lengths.data_ptr(), B, OUT),
+                           (syms_u8.data_ptr(), hi_packed.data_ptr(), hi_count.data_ptr()))
     if rc != 0:
         raise RuntimeError(f"tpubz_stage_compact launch failed: CUDA error {rc}")
     with _launch_lock:

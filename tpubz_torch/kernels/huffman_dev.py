@@ -65,7 +65,8 @@ def payload_words_cap(out_len: int) -> int:
 def _length(rle2_len, device, rows: int | None = None) -> torch.Tensor:
     """A stream length (or one a row) as a contiguous int64 or int32 tensor
     on ``device``."""
-    t = torch.as_tensor(rle2_len, device=device)
+    t = rle2_len if isinstance(rle2_len, torch.Tensor) and rle2_len.device == device else \
+        torch.as_tensor(rle2_len, device=device)
     if t.dtype not in (torch.int64, torch.int32):
         raise TypeError(f"a stream length must be int64 or int32, not {t.dtype}")
     if t.shape != (() if rows is None else (rows,)):
@@ -377,12 +378,18 @@ def pack_payload(syms: torch.Tensor, rle2_len, sel: torch.Tensor, codes: torch.T
     if dev.type != "cuda":
         raise ValueError(f"pack_payload: unsupported device {dev}")
     syms = syms.contiguous()
-    length = _length(rle2_len, dev)
-    sel, codes, lens = (t.to(dev).contiguous() for t in (sel, codes, lens))
+    # a device length goes by pointer, a host int by value: no copy
+    if isinstance(rle2_len, torch.Tensor):
+        length = _length(rle2_len, dev)
+        len_args = (length.data_ptr(), length.element_size(), 0)
+    else:
+        len_args = (None, 8, int(rle2_len))
+    sel, codes, lens = (t if t.device == dev and t.is_contiguous() else t.to(dev).contiguous()
+                        for t in (sel, codes, lens))
     packed = bitpack.launch(
         "tpubz_pack_payload",
-        (syms.data_ptr(), syms.element_size(), length.data_ptr(), length.element_size(),
-         sel.data_ptr(), codes.data_ptr(), lens.data_ptr()),
+        (syms.data_ptr(), syms.element_size(), *len_args, sel.data_ptr(), codes.data_ptr(),
+         lens.data_ptr()),
         out, payload_words_cap(out), dev)
     with _launch_lock:
         PAYLOAD_LAUNCHES += 1

@@ -7,6 +7,11 @@ thread pool (the native decoder releases the GIL), while the walk in
 stream order takes each block's result when it reaches it, or decodes the
 block itself. A magic inside a payload costs one wasted decode that the
 walk never takes. Decoding has no device leg.
+
+``last_decode_stats`` describes the most recent stream decoded (of a
+concatenation, the last): ``engine`` (always ``"native"``: the port has no
+numpy decoder), ``blocks`` and ``parallel_candidates``, the magic hits
+submitted to the pool (a count that depends on the scanner thread's pace).
 """
 from __future__ import annotations
 
@@ -20,6 +25,9 @@ from ..format.constants import BLOCK_MAGIC, FOOTER_MAGIC, STREAM_MAGIC
 from ..format.crc import stream_crc_fold
 from ..hostref.bitio import BitReader
 from ..native import decode_block_native, find_magic2_native
+
+# phase attribution of the most recent stream decode (tpubz's keys)
+last_decode_stats: dict = {}
 
 
 def decompress(data: bytes) -> bytes:
@@ -119,5 +127,8 @@ def _decompress_one(data: bytes) -> tuple[bytes, int]:
             pool[0].shutdown(wait=False)
     if scan_err[0] is not None:
         raise scan_err[0]
+    last_decode_stats.clear()
+    last_decode_stats.update(engine="native", blocks=len(parts),
+                             parallel_candidates=len(futures))
     # one copy: join over memoryviews
     return b"".join(memoryview(p) for p in parts), (pos + 7) // 8
