@@ -30,7 +30,20 @@ file that ends in padding gives. The same data then goes through the bwt stage
 profile ([hybrid], beside compress_cpu), each byte-equal to [path]'s stream
 with its kernel counts read from zero; and the short stream through
 compress_file, open("wb"), BZ2Compressor and python -m tpubz_torch
-([files]), each byte-equal to tpubz_torch.compress. The multi-process path
+([files]), each byte-equal to tpubz_torch.compress. The scalar codec
+(tpubz_torch/hostref: numpy and Python lists, sharing no code with the
+kernels or the native engine) then holds the card's main-path kernels and
+stream ([oracle], tolerance 0): the card's short level-9 stream (the 3 MiB
+prefix and the edge blocks) byte-equal to hostref.stream.compress; on each
+of its level-9 blocks and the ab...abc and bytes(range(256)) * 3500 edge
+blocks the card's BWT key and last column equal to hostref.bwt.bwt_encode's
+and its RLE2 symbols, length, frequencies and used map to
+hostref.mtf_rle2.mtf_rle2_encode's of the scalar last column (the BWT, MTF
+and RLE2 kernels launched, no plain version); the scalar decoder, traced
+into a counting handler, gives the short data back; python -m tpubz_torch
+-d --trace-bits on the card's stream of a 256 KiB prefix writes it back with
+its trace on stderr, and cli.run(prog="tpcat") to stdout, each in a
+subprocess. The phase prints the scalar codec's seconds. The multi-process path
 ([multihost]) runs this script as two gloo ranks on the one card
 (``--rank R --world W --port P --job PATH``, a TCPStore on a free
 127.0.0.1 port): compress_multihost at level 9 on a 10-block cut of the
@@ -118,6 +131,7 @@ checks that neither was loaded. The last line is
 """
 import hashlib
 import json
+import logging
 import math
 import os
 import shutil
@@ -491,6 +505,8 @@ def _smoke(tmp):
     clock.mark("hybrid")
     files(tpubz_torch, short, got, tmp)
     clock.mark("files")
+    oracle(tpubz_torch, short, got, edges, tmp)
+    clock.mark("oracle")
     mh_launches = multihost(tpubz_torch, corpus, edges, rng, tmp)
     clock.mark("multihost")
     dref_launches = devrefine(tpubz_torch, data, stream)
@@ -1979,6 +1995,135 @@ def files(tpubz_torch, short, want, tmp):
             raise AssertionError(f"{name} differs from tpubz_torch.compress")
         checked.append(name + ("+bunzip2" if _bunzip2_ok(out, short) else ""))
     _say("files", f"bytes={len(short)} equal_to_compress={','.join(checked)}")
+
+
+ORACLE_TRACE_KB = 256  # the prefix the command line decodes with --trace-bits
+
+
+class _CountLines(logging.Handler):
+    """A logging handler that counts the records it is given."""
+
+    def __init__(self):
+        super().__init__(logging.DEBUG)
+        self.lines = 0
+
+    def emit(self, record):
+        self.lines += 1
+
+
+def oracle(tpubz_torch, short, want, edges, tmp):
+    """The card's main-path kernels and streams against the scalar codec
+    (tpubz_torch/hostref: numpy and Python lists, no code shared with the
+    kernels or the native engine), tolerance 0. (a) The card's level-9
+    stream of the short data (want, from [short]) equals
+    hostref.stream.compress(short, 9). (b) On every level-9 block of the
+    short data, as the scalar codec cuts it, and the ab...abc and
+    bytes(range(256)) * 3500 edge blocks: transform_bwt and fetch_bwt give
+    the key and last column of hostref.bwt.bwt_encode. (c) On the same
+    blocks: transform and fetch give the RLE2 symbols, their length, the
+    frequencies and the used map of hostref.mtf_rle2.mtf_rle2_encode of the
+    scalar last column; the BWT, MTF and RLE2 kernels launched once a block
+    each call and no plain version ran. (d) hostref.stream.decompress of
+    the card's stream, its trace counted by a handler, gives the short data
+    back. (e) python -m tpubz_torch -d --trace-bits on the card's stream of
+    a prefix writes the prefix back with "read at bit" lines on its stderr,
+    and cli.run([file], prog="tpcat") writes it to its stdout, each in a
+    subprocess."""
+    from tpubz_torch.block.encode import DeviceBlockEncoder
+    from tpubz_torch.format.constants import block_budget
+    from tpubz_torch.hostref import stream as scalar
+    from tpubz_torch.hostref.bwt import bwt_encode
+    from tpubz_torch.hostref.mtf_rle2 import mtf_rle2_encode
+    from tpubz_torch.hostref.rle1 import rle1_encode, split_blocks
+    from tpubz_torch.kernels import mtf, rle2, suffix_sort
+    from tpubz_torch.stage_probe import DEVICE_ONLY, env
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    if scalar.compress(short, LEVEL) != want:
+        raise AssertionError("the card's stream differs from the scalar encoder's")
+    encode_s = time.perf_counter() - t0
+
+    arr = np.frombuffer(short, np.uint8)
+    out, seg_out, seg_in = rle1_encode(arr)
+    blocks = [out[o0:o1] for o0, o1, _, _ in split_blocks(out, seg_out, seg_in,
+                                                          block_budget(LEVEL))]
+    blocks += [np.frombuffer(edges[k], np.uint8) for k in ("near_periodic", "all256")]
+    enc = DeviceBlockEncoder(LEVEL)
+    _zero_counts()
+    torch.cuda.synchronize()
+    scalar_block_s = 0.0
+    with _PlainCalls([(suffix_sort, "bwt_forward_ref"), (mtf, "mtf_ranks_ref"),
+                      (rle2, "rle2_encode_ref")]) as plain:
+        for i, blk in enumerate(blocks):
+            key, last = enc.fetch_bwt(enc.transform_bwt(blk))
+            ckey, csyms, clen, cfreqs, cused = enc.fetch(enc.transform(blk))
+            t0 = time.perf_counter()
+            skey, slast = bwt_encode(blk)
+            ssyms, sfreqs, sused = mtf_rle2_encode(slast)
+            scalar_block_s += time.perf_counter() - t0
+            if key != skey or ckey != skey or not np.array_equal(last, slast):
+                raise AssertionError(f"block {i} ({blk.size} bytes): the card's BWT key or last "
+                                     f"column differs from the scalar BWT's")
+            if (clen != ssyms.size or not np.array_equal(csyms, ssyms)
+                    or not np.array_equal(cfreqs, sfreqs) or not np.array_equal(cused, sused)):
+                raise AssertionError(f"block {i} ({blk.size} bytes): the card's RLE2 symbols, "
+                                     f"length, frequencies or used map differ from the scalar "
+                                     f"MTF/RLE2's")
+    nb = len(blocks)
+    launches = {"bwt": suffix_sort.LAUNCHES, "mtf": mtf.LAUNCHES, "rle2": rle2.LAUNCHES}
+    if launches != {"bwt": 2 * nb, "mtf": nb, "rle2": nb} or any(plain.calls.values()):
+        raise AssertionError(f"oracle launches {launches} for {nb} blocks, plain calls "
+                             f"{plain.calls}")
+
+    counter = _CountLines()
+    logger = logging.getLogger("tpubz_torch")
+    level = logger.level
+    logger.addHandler(counter)
+    logger.setLevel(logging.DEBUG)
+    logger.propagate = False  # the trace goes to the counter, not the output
+    try:
+        t0 = time.perf_counter()
+        back = scalar.decompress(want, trace=True)
+        decode_s = time.perf_counter() - t0
+    finally:
+        logger.removeHandler(counter)
+        logger.setLevel(level)
+        logger.propagate = True
+    if back != short:
+        raise AssertionError("the scalar decoder did not give the short data back")
+
+    prefix = short[: ORACLE_TRACE_KB << 10]
+    with env(**DEVICE_ONLY["full"]):
+        z = tpubz_torch.compress(prefix, LEVEL, device="cuda")
+    src = os.path.join(tmp, "oracle.bz2")
+    with open(src, "wb") as f:
+        f.write(z)
+    root = os.path.dirname(os.path.abspath(__file__))
+    sub_env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        filter(None, (root, os.environ.get("PYTHONPATH")))))
+    traced = subprocess.run([sys.executable, "-m", "tpubz_torch", "-d", "-k", "-f",
+                             "--trace-bits", src], cwd=root, env=sub_env, capture_output=True,
+                            timeout=600, check=True)
+    cli_lines = traced.stderr.count(b"read at bit")
+    with open(src[:-4], "rb") as f:
+        if f.read() != prefix or not cli_lines:
+            raise AssertionError("python -m tpubz_torch -d --trace-bits did not give the prefix "
+                                 "back with its trace")
+    cat = subprocess.run([sys.executable, "-c", "import sys; from tpubz_torch import cli; "
+                          "sys.exit(cli.run(sys.argv[1:], prog='tpcat'))", src], cwd=root,
+                         env=sub_env, capture_output=True, timeout=600, check=True)
+    if cat.stdout != prefix:
+        raise AssertionError("cli.run(prog='tpcat') did not write the prefix to stdout")
+    _say("oracle", f"bytes={len(short)} stream==scalar_compress blocks={nb} "
+         f"(level-9 blocks {nb - 2} + near_periodic + all256) bwt_key_last==scalar "
+         f"rle2_syms_len_freqs_used==scalar launches={launches} plain_calls={plain.calls} "
+         f"scalar_decompress==short trace_lines={counter.lines} "
+         f"cli_trace_bits_prefix_bytes={len(prefix)} cli_trace_lines={cli_lines} "
+         f"tpcat_stdout==prefix mismatches=0 tolerance=0 "
+         f"scalar_encode_s={encode_s} scalar_blocks_s={scalar_block_s} "
+         f"scalar_decode_traced_s={decode_s} phase_s={time.perf_counter() - t_phase} "
+         f"(host clock)")
 
 
 if __name__ == "__main__":

@@ -68,6 +68,13 @@ _SURFACES = textwrap.dedent("""
     enc = DeviceBlockEncoder(1, device="cpu")
     out = enc.transform(np.frombuffer(d[:100_000], np.uint8))
     assert enc.encode_block_devrefine(out, 7).pack() == enc.emit_block(*enc.fetch(out), 7).pack()
+    from tpubz_torch.hostref import stream as scalar
+    small = os.path.join(os.path.dirname(src), "small.bz2")
+    with open(small, "wb") as f:
+        f.write(scalar.compress(d[:20_000], 1))
+    assert cli.run(["-d", "-f", "--trace-bits", small], device="cpu") == 0
+    with open(small[:-4], "rb") as f:
+        assert f.read() == d[:20_000]
     print(" ".join(sorted(m for m in sys.modules
                           if m == "jax" or m.startswith("jax.")
                           or m == "tpubz" or m.startswith("tpubz."))))
@@ -78,8 +85,9 @@ def test_public_surfaces_load_no_tpubz_and_no_jax(tmp_path):
     """compress(device="cpu"), compress_cpu, decompress, the multi-process
     path's compress_multihost and decompress_multihost (one process),
     open("wb"/"rb"), BZ2Compressor/BZ2Decompressor, cli.run,
-    ``python -m tpubz_torch -k`` and the device refine block encoder
-    (``encode_block_devrefine``) run in a fresh interpreter, which then
+    ``python -m tpubz_torch -k``, the device refine block encoder
+    (``encode_block_devrefine``), the scalar codec and ``--trace-bits`` run
+    in a fresh interpreter, which then
     holds no tpubz* and no jax* module."""
     env = dict(os.environ, PYTHONPATH=ROOT, TPUBZ_TORCH_CACHE=str(tmp_path / "cache"))
     proc = subprocess.run([sys.executable, "-c", _SURFACES, str(tmp_path)], cwd=str(tmp_path),
@@ -103,6 +111,9 @@ def test_no_file_of_the_port_imports_tpubz():
     found = []
     files = list(_port_files())
     assert len(files) > 20
+    scanned = {os.path.relpath(f, ROOT) for f in files}
+    assert {f"tpubz_torch/hostref/{m}.py" for m in ("bwt", "mtf_rle2", "block", "stream",
+                                                     "huffman", "rle1", "bitio")} <= scanned
     for path in files:
         tree = ast.parse(open(path).read(), path)
         for node in ast.walk(tree):

@@ -10,6 +10,7 @@ Every call that starts threads runs under a 60 s bound.
 """
 import bz2
 import io
+import logging
 import os
 import subprocess
 import sys
@@ -322,7 +323,7 @@ def test_version_equals_tpubz():
                          ids=["five_blocks", "one_block", "empty"])
 def test_last_decode_stats_match_tpubz(level, size):
     """Every decompress sets last_decode_stats as tpubz does: the engine
-    ("native": the port has no numpy decoder), the blocks, equal to tpubz's
+    ("native": the scalar decoder is reached only by --trace-bits), the blocks, equal to tpubz's
     count, and parallel_candidates, an int from 0 to the stream's magic
     hits (the count depends on the scanner thread's pace). Of a
     concatenation, the last stream's."""
@@ -350,3 +351,105 @@ def test_last_decode_stats_match_tpubz(level, size):
     tail = compress_cpu(b"xyz" * 1000, 9)
     assert tpubz_torch.decompress(stream + tail) == data + b"xyz" * 1000
     assert pdecode.last_decode_stats["blocks"] == 1
+
+
+@pytest.fixture
+def trace_log(monkeypatch):
+    """The ``tpubz_torch`` logger's messages during a test; its level is
+    restored after it, and TPUBZ_TRACE_BITS is unset before it."""
+    monkeypatch.delenv("TPUBZ_TRACE_BITS", raising=False)
+    logger = logging.getLogger("tpubz_torch")
+    level = logger.level
+    lines = []
+    handler = logging.Handler(logging.DEBUG)
+    handler.emit = lambda r: lines.append(r.getMessage())
+    logger.addHandler(handler)
+    yield lines
+    logger.removeHandler(handler)
+    logger.setLevel(level)
+
+
+def test_cli_trace_bits_decode(tmp_path, trace_log, sys_bzip2):
+    """--trace-bits decodes through the scalar decoder and logs the bit
+    position of every header field and decoded symbol; it leaves no
+    TPUBZ_TRACE_BITS behind."""
+    data = b"trace me, trace me again, trace me once more\n"
+    src = tmp_path / "t.bz2"
+    src.write_bytes(sys_bzip2(data, 9))
+    assert _run(["-d", "-k", "-f", "--trace-bits", str(src)]) == 0
+    assert (tmp_path / "t").read_bytes() == data
+    msgs = [m for m in trace_log if "read at bit" in m]
+    assert any("block CRC" in m for m in msgs)
+    assert any(m.startswith("sym ") for m in msgs)
+    assert len(msgs) > 10
+    assert "TPUBZ_TRACE_BITS" not in os.environ
+
+
+def test_cli_trace_bits_concat_and_stdin(tmp_path, trace_log, sys_bzip2, monkeypatch,
+                                         capsysbinary):
+    """--trace-bits decodes every stream of a concatenation, from a file and
+    from stdin, through the traced scalar decoder."""
+    a, b = b"first stream\n", b"second stream\n"
+    blob = sys_bzip2(a, 9) + sys_bzip2(b, 9)
+    src = tmp_path / "m.bz2"
+    src.write_bytes(blob)
+    assert _run(["-d", "-k", "-f", "--trace-bits", str(src)]) == 0
+    assert (tmp_path / "m").read_bytes() == a + b
+    assert sum(m.startswith("block CRC read at bit") for m in trace_log) == 2
+    del trace_log[:]
+    monkeypatch.setattr("sys.stdin", type("S", (), {"buffer": io.BytesIO(blob)})())
+    assert _run(["-d", "--trace-bits"]) == 0
+    assert capsysbinary.readouterr().out == a + b
+    assert sum(m.startswith("sym ") for m in trace_log) > 10
+    assert "TPUBZ_TRACE_BITS" not in os.environ
+
+
+def test_cli_program_names(tmp_path, monkeypatch, capsysbinary):
+    """tpunzip* decompresses and tpcat* decompresses to stdout, as bunzip2
+    and bzcat."""
+    assert cli.parse_args([], prog="tpunzip2").mode == "unzip"
+    o = cli.parse_args([], prog="/usr/local/bin/tpcat")
+    assert o.mode == "unzip" and o.stdout
+    assert cli.parse_args([], prog="bzcat").stdout
+    d = _payload(7, 20_000)
+    src = tmp_path / "p.bz2"
+    src.write_bytes(compress_cpu(d, 1))
+    assert _run([str(src)], prog="tpcat") == 0
+    assert capsysbinary.readouterr().out == d and src.exists()
+    assert _run(["-k", str(src)], prog="tpunzip2") == 0
+    assert (tmp_path / "p").read_bytes() == d
+
+
+def test_decode_surfaces_never_reach_the_scalar_codec(tmp_path, monkeypatch, capsysbinary):
+    """decompress, open("rb"), BZ2Decompressor and the command line without
+    --trace-bits decode natively: with the scalar codec made to raise they
+    still decode, and last_decode_stats names the native engine."""
+    from tpubz_torch.hostref import block as hblock
+    from tpubz_torch.hostref import stream as hstream
+    from tpubz_torch.stream import decode as pdecode
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the scalar codec was reached")
+
+    for mod, name in ((hstream, "compress"), (hstream, "decompress"),
+                      (hblock, "decode_block"), (hblock, "encode_block")):
+        monkeypatch.setattr(mod, name, refuse)
+    d = _payload(8, 30_000)
+    z = compress_cpu(d, 1)
+    pdecode.last_decode_stats.clear()
+    assert tpubz_torch.decompress(z) == d
+    assert pdecode.last_decode_stats["engine"] == "native"
+    src = tmp_path / "s.bz2"
+    src.write_bytes(z)
+    with tpubz_torch.open(str(src), "rb") as f:
+        assert f.read() == d
+    assert tpubz_torch.BZ2Decompressor().decompress(z) == d
+    assert _run(["-d", "-k", str(src)]) == 0
+    assert (tmp_path / "s").read_bytes() == d
+    pdecode.last_decode_stats.clear()
+    assert _run(["-c", "-d", str(src)]) == 0
+    assert capsysbinary.readouterr().out == d
+    assert pdecode.last_decode_stats["engine"] == "native"
+    monkeypatch.setattr("sys.stdin", type("S", (), {"buffer": io.BytesIO(z)})())
+    assert _run(["-d"]) == 0
+    assert capsysbinary.readouterr().out == d

@@ -32,6 +32,9 @@ Layer map:
   format/, hostref/, block/emit.py, stream/decode.py: the format constants
             and CRC, bit packing and splicing, the RLE1 block feed, block
             emission and the block-parallel decoder, on native/
+  hostref/stream.py: the scalar codec (tpubz's numpy and Python codec, no
+            native code and no card; the oracle of both, behind
+            --trace-bits; no route takes it)
 
 The package stands alone: it imports torch, numpy and the standard library,
 never tpubz and never jax. Its host engine is its own copy of tpubz's C++

@@ -1,14 +1,17 @@
 """bzip2-compatible command line of the port: ``python -m tpubz_torch``.
 
 The counterpart of ``tpubz/cli.py``: its flags (combined short flags,
-``-1..-9``, ``--fast``/``--best``, bunzip2/bzcat by the program name, stdin
-to stdout when no file is named) and C bzip2's file semantics (inputs
-deleted on success unless -k, no overwrite without -f, -t decodes and
-checks the CRCs). Encoding runs on the port's scheduler with device blocks
-on the device given to ``run`` ("cuda" from ``main``); ``--host-engine``
-runs the native CPU engine alone. Decoding is the port's host decoder.
-``--profile=DIR`` writes a ``torch.profiler`` trace; ``--iterations=N``
-sets the port's Huffman refinement count.
+``-1..-9``, ``--fast``/``--best``, bunzip2/tpunzip and bzcat/tpcat by the
+program name, stdin to stdout when no file is named) and C bzip2's file
+semantics (inputs deleted on success unless -k, no overwrite without -f, -t
+decodes and checks the CRCs). Encoding runs on the port's scheduler with
+device blocks on the device given to ``run`` ("cuda" from ``main``);
+``--host-engine`` runs the native CPU engine alone. Decoding is the port's
+host decoder; with ``--trace-bits`` the scalar decoder
+(``hostref/stream.py``) decodes the whole buffer and logs the bit position
+of every header field and symbol. ``--profile=DIR`` writes a
+``torch.profiler`` trace; ``--iterations=N`` sets the port's Huffman
+refinement count.
 """
 from __future__ import annotations
 
@@ -45,9 +48,12 @@ HELP = f"""usage: {PROG} [flags and input files in any order]
    --host-engine       compress on the native CPU engine alone
    --device-engine     compress with device blocks (the default)
    --profile=DIR       write a torch.profiler trace of the run to DIR
+   --trace-bits        decode through the scalar reference decoder with
+                       a bit-position log line for every header field
+                       and decoded symbol (format debugging)
 
-   If invoked as `bunzip2', default action is to decompress.
-              as `bzcat', default action is to decompress to stdout.
+   If invoked as `bunzip2' or `tpunzip', default action is to decompress.
+              as `bzcat' or `tpcat', default action is to decompress to stdout.
 
    If no file names are given, {PROG} compresses or decompresses
    from standard input to standard output. You can combine
@@ -68,6 +74,7 @@ class Opts:
         self.engine = "device"  # device | host
         self.iterations: int | None = None
         self.profile: str | None = None
+        self.trace_bits = False
         self.workfactor: int | None = None  # parsed, unused
 
 
@@ -89,9 +96,9 @@ def _int_value(arg: str) -> int:
 def parse_args(argv: list[str], prog: str = PROG) -> Opts:
     o = Opts()
     base = os.path.basename(prog)
-    if base.startswith("bunzip2"):
+    if base.startswith(("bunzip2", "tpunzip")):
         o.mode = "unzip"
-    elif base.startswith("bzcat"):
+    elif base.startswith(("bzcat", "tpcat")):
         o.mode = "unzip"
         o.stdout = True
 
@@ -121,6 +128,8 @@ def parse_args(argv: list[str], prog: str = PROG) -> Opts:
                 o.iterations = _int_value(arg)
             elif arg.startswith("--profile="):
                 o.profile = arg.split("=", 1)[1]
+            elif arg == "--trace-bits":
+                o.trace_bits = True
             elif arg.startswith("--workfactor="):
                 o.workfactor = _int_value(arg)
                 if not 0 <= o.workfactor <= 250:
@@ -147,9 +156,11 @@ def _log(o: Opts, level: int, msg: str) -> None:
 
 
 def _setup_logging(o: Opts) -> None:
-    """-v..-vvvvv map to log levels of the ``tpubz_torch`` logger."""
+    """-v..-vvvvv map to log levels of the ``tpubz_torch`` logger;
+    --trace-bits sets DEBUG."""
     level = (
-        logging.ERROR if o.verbosity == 0 or o.quiet
+        logging.DEBUG if o.trace_bits
+        else logging.ERROR if o.verbosity == 0 or o.quiet
         else logging.WARNING if o.verbosity == 1
         else logging.INFO if o.verbosity in (2, 3)
         else logging.DEBUG
@@ -180,11 +191,20 @@ def _run(o, dev) -> int:
     CPU engine alone."""
     from .format.constants import set_huffman_iters
     from .stream import api
-    from .stream.decode import decompress
     from .stream.files import compress_file, compress_stream, decompress_file, decompress_stream
 
     if o.iterations is not None:
         set_huffman_iters(o.iterations)
+    if o.trace_bits:
+        from .hostref.stream import decompress as scalar
+
+        def decompress(data: bytes) -> bytes:
+            return scalar(data, trace=True)
+    else:
+        from .stream.decode import decompress
+    # the traced scalar decoder takes the whole buffer, so the streaming
+    # decode paths stay out of its way; compression keeps them
+    stream_unzip = o.mode == "unzip" and not o.trace_bits
 
     def compress(data: bytes) -> bytes:
         if dev is None:
@@ -195,8 +215,10 @@ def _run(o, dev) -> int:
         # stdin/stdout on the bounded-memory streaming paths
         if o.mode == "zip":
             compress_stream(sys.stdin.buffer, sys.stdout.buffer, o.level, device=dev)
-        elif o.mode == "unzip":
+        elif stream_unzip:
             decompress_stream(sys.stdin.buffer, sys.stdout.buffer)
+        elif o.mode == "unzip":
+            sys.stdout.buffer.write(decompress(sys.stdin.buffer.read()))
         else:
             decompress(sys.stdin.buffer.read())
             _log(o, 1, "stdin: ok")
@@ -205,7 +227,7 @@ def _run(o, dev) -> int:
     rc = 0
     for fname in o.files:
         try:
-            if o.mode in ("zip", "unzip") and not o.stdout:
+            if (o.mode == "zip" or stream_unzip) and not o.stdout:
                 # streaming paths: bounded memory for files of any size
                 if o.mode == "zip":
                     out_name = fname + ".bz2"

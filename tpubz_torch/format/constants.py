@@ -19,12 +19,21 @@ def block_budget(level: int) -> int:
     return level * 100_000 - 19
 
 
+# RLE1: runs of RUN_THRESHOLD..MAX_RUN equal bytes become RUN_THRESHOLD
+# literals and a count byte
+RUN_THRESHOLD = 4
+MAX_RUN = 255
+
+# the most zeros RLE2 run digits may decode to before the decoder refuses
+ZERO_BOMB = 2 * 1024 * 1024
+
 # Huffman coding: symbols a selector group, tables, alphabet (256 byte
 # symbols + RUNA/RUNB overlay + EOB) and the longest code the encoder emits
 GROUP_SIZE = 50
 MAX_GROUPS = 6
 MAX_ALPHA_SIZE = 258
 MAX_CODE_LEN_ENCODE = 17
+MAX_CODE_LEN_DECODE = 20  # the longest code a decoder must accept
 
 
 def group_count_for(rle2_len: int) -> int:

@@ -2,9 +2,11 @@
 
 The counterpart of ``tpubz/hostref/bitio.py`` for what the port's stream
 assembly and decoders use: ``BitAccum`` (header and footer fields, the
-emitted blocks as byte runs, and payload words packed on the device), ``pack_bits`` on the native packer,
+emitted blocks as byte runs, and payload words packed on the device), ``pack_bits`` on the native packer
+and ``pack_bits_numpy`` (the scalar codec's, without it),
 ``splice_byte_chunks`` and ``IncrementalSplicer`` (blocks joined at bit
-granularity) and ``BitReader`` (header fields of the decoders).
+granularity) and ``BitReader`` (header fields of the decoders, and every bit
+of the scalar decoder).
 """
 from __future__ import annotations
 
@@ -87,6 +89,10 @@ class BitAccum:
         self._chunks.append(("b", data, nbits))
         self._total += nbits
 
+    @property
+    def bit_len(self) -> int:
+        return self._total
+
     def arrays(self) -> tuple[np.ndarray, np.ndarray]:
         """The fields as (vals, bits) arrays; byte runs become 8-bit fields
         and a sub-byte tail."""
@@ -144,6 +150,28 @@ def pack_bits(vals: np.ndarray, bits: np.ndarray) -> bytes:
     return pack_bits_native(vals, bits)
 
 
+def pack_bits_numpy(vals: np.ndarray, bits: np.ndarray) -> bytes:
+    """``pack_bits`` in numpy: the offsets' prefix sum and word scatters.
+    A field of at most 24 bits at an in-word offset of at most 31 spans at
+    most two 32-bit words (24 + 31 < 64)."""
+    vals = np.asarray(vals, dtype=np.uint64)
+    bits = np.asarray(bits, dtype=np.int64)
+    if vals.size == 0:
+        return b""
+    if int(bits.max()) > 24:
+        raise ValueError("pack_bits_numpy fields must be <= 24 bits")
+    offs = np.concatenate(([0], np.cumsum(bits)))[:-1]
+    total = int(offs[-1] + bits[-1])
+    nwords = (total + 31) // 32 + 1
+    words = np.zeros(nwords, dtype=np.uint64)
+    w = offs >> 5
+    # the 64-bit window at word w holds the field at bit 64 - (offs % 32) - bits
+    contrib = vals << (64 - (offs & 31) - bits).astype(np.uint64)
+    np.bitwise_or.at(words, w, contrib >> np.uint64(32))
+    np.bitwise_or.at(words, w + 1, contrib & np.uint64(0xFFFF_FFFF))
+    return words.astype(">u4").tobytes()[: (total + 7) // 8]
+
+
 def splice_byte_chunks(chunks: list[tuple[bytes, int]]) -> tuple[bytes, int]:
     """Join byte-padded bit chunks [(payload, exact bit length), ...] at bit
     granularity: (bytes, total bits)."""
@@ -191,7 +219,7 @@ class IncrementalSplicer:
 
 
 class BitReader:
-    """MSB-first reader of header fields over an in-memory byte buffer."""
+    """MSB-first reader over an in-memory byte buffer."""
 
     def __init__(self, data: bytes):
         self._d = np.frombuffer(data, dtype=np.uint8)
@@ -215,3 +243,18 @@ class BitReader:
         drop_right = (last_byte - first_byte + 1) * 8 - (pos & 7) - nbits
         self.pos = pos + nbits
         return (acc >> drop_right) & ((1 << nbits) - 1)
+
+    def remaining(self) -> int:
+        return self.bit_len - self.pos
+
+    def read_bit(self) -> int:
+        if self.pos >= self.bit_len:
+            raise EOFError("bitstream exhausted")
+        b = (int(self._d[self.pos >> 3]) >> (7 - (self.pos & 7))) & 1
+        self.pos += 1
+        return b
+
+    def peek_bits_array(self, start_bit: int, count: int) -> np.ndarray:
+        """Bits [start_bit, start_bit + count) as a uint8 array of 0 and 1."""
+        idx = np.arange(start_bit, start_bit + count)
+        return (self._d[idx >> 3] >> (7 - (idx & 7))) & 1

@@ -9,9 +9,11 @@ block itself. A magic inside a payload costs one wasted decode that the
 walk never takes. Decoding has no device leg.
 
 ``last_decode_stats`` describes the most recent stream decoded (of a
-concatenation, the last): ``engine`` (always ``"native"``: the port has no
-numpy decoder), ``blocks`` and ``parallel_candidates``, the magic hits
-submitted to the pool (a count that depends on the scanner thread's pace).
+concatenation, the last): ``engine`` (always ``"native"``: this decoder runs
+the native engine alone; the numpy scalar decoder, ``hostref/stream.py``,
+is reached only through the command line's ``--trace-bits``), ``blocks``
+and ``parallel_candidates``, the magic hits submitted to the pool (a count
+that depends on the scanner thread's pace).
 """
 from __future__ import annotations
 
@@ -24,10 +26,29 @@ import numpy as np
 from ..format.constants import BLOCK_MAGIC, FOOTER_MAGIC, STREAM_MAGIC
 from ..format.crc import stream_crc_fold
 from ..hostref.bitio import BitReader
-from ..native import decode_block_native, find_magic2_native
+from ..native import decode_block_native, find_magic2_native, find_magic_native
 
 # phase attribution of the most recent stream decode (tpubz's keys)
 last_decode_stats: dict = {}
+
+
+def find_magic_bit_offsets(data: bytes, magic: int = BLOCK_MAGIC) -> np.ndarray:
+    """Every bit offset of the 48-bit ``magic`` in ``data``, ascending
+    (the native scan)."""
+    arr = np.frombuffer(data, dtype=np.uint8)
+    if arr.size < 6:
+        return np.zeros(0, dtype=np.int64)
+    return find_magic_native(arr, magic)
+
+
+def split_blocks_for_parallel_decode(data: bytes) -> list[tuple[int, int]]:
+    """(start_bit, end_bit) of each block magic hit past the stream header,
+    the end the next hit's start or the data's end. A hit may lie inside a
+    payload: a caller decodes each span and falls back to the serial walk
+    (``decompress``) when a CRC or the structure fails."""
+    candidates = [int(c) for c in find_magic_bit_offsets(data) if c >= 32]
+    ends = candidates[1:] + [len(data) * 8]
+    return list(zip(candidates, ends))
 
 
 def decompress(data: bytes) -> bytes:
