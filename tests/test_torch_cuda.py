@@ -7,6 +7,8 @@ fixture, never at import). The codec is integer, so every comparison is
 exact: tolerance 0. On a machine with a card:
     python -m pytest tests/test_torch_cuda.py
 """
+import time
+
 import numpy as np
 import pytest
 
@@ -540,6 +542,30 @@ def _card_block(name, cuda):
     data = torch.zeros(900_096, dtype=torch.uint8, device=cuda)
     data[: len(blk)] = torch.frombuffer(bytearray(blk), dtype=torch.uint8).to(cuda)
     return data, len(blk)
+
+
+@pytest.mark.parametrize("name", ["corpus", "near_periodic", "one_byte_run"])
+def test_bwt_call_time_on_the_card(cuda, name):
+    """A finished call's device_ns, from the card's clock at the start of
+    bwt_setup and at the end of bwt_last_column: above 0, and below the
+    host's wall time of the call followed by a synchronise. A stream's
+    blocks carry it on their fetch.wait spans."""
+    from tpubz_torch import spans
+    from tpubz_torch.kernels import suffix_sort
+
+    data, n = _card_block(name, cuda)
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter_ns()
+        _, _, call = suffix_sort.bwt_forward_async(data, n)
+        call.finish()
+        torch.cuda.synchronize()
+        wall = time.perf_counter_ns() - t0
+        assert 0 < call.device_ns < wall
+    with spans.recording() as rec:
+        tpubz_torch.compress(mixed_corpus(4, 8), 9, device="cuda")
+    waits = [s for s in rec.spans if s.name == "fetch.wait"]
+    assert len(waits) >= 4 and all(s.attrs["bwt_device_ns"] > 0 for s in waits)
 
 
 def test_bwt_call_returns_before_the_card_and_finishes_at_the_fetch(cuda):

@@ -45,6 +45,7 @@ import time
 import numpy as np
 import torch
 
+from .. import spans
 from ..format.constants import BLOCK_MAGIC, MAX_ALPHA_SIZE, MAX_GROUPS, group_count_for, huffman_iters
 from ..hostref.bitio import BitAccum
 from ..hostref.huffman import c_init_tables, huffman_emit_headers, mtf_selectors
@@ -148,6 +149,12 @@ class Pending:
         self._finish = finish
         self._bwt = bwt
 
+    @property
+    def device_ns(self) -> int | None:
+        """The block's BWT call's time on the card, once ``result()`` has
+        finished it (``BwtCall.device_ns``); None on the CPU."""
+        return None if self._bwt is None else self._bwt.device_ns
+
     def result(self):
         if self._event is not None:
             self._event.synchronize()  # releases the GIL while it waits
@@ -181,9 +188,10 @@ class DeviceBlockEncoder:
         n = int(rle1_block.size)
         if n > self.N:
             raise ValueError(f"block of {n} bytes exceeds N={self.N}")
-        data = torch.zeros(self.N, dtype=torch.uint8, device=self.device)
-        # np.require copies only a read-only view, which torch cannot wrap
-        data[:n].copy_(torch.from_numpy(np.require(rle1_block, np.uint8, "CW")))
+        with spans.span("dispatch.upload"):
+            data = torch.zeros(self.N, dtype=torch.uint8, device=self.device)
+            # np.require copies only a read-only view, which torch cannot wrap
+            data[:n].copy_(torch.from_numpy(np.require(rle1_block, np.uint8, "CW")))
         return data
 
     def transform(self, rle1_block: np.ndarray, lean: bool = False):
@@ -215,11 +223,12 @@ class DeviceBlockEncoder:
         copies. The lean form's scalars and used map travel as one int64
         vector, beside the byte stream and the slots of the symbols 256:
         three copies behind one event."""
-        if len(out) == 7:
-            return self._fetch_lean_async(out)
-        key, syms, rle2_len, freqs, used = out
-        small = _small_vector(key, rle2_len, freqs, used)
-        (h_small, h_syms), event = host_copies(self.device, small, syms)
+        with spans.span("dispatch.copies"):
+            if len(out) == 7:
+                return self._fetch_lean_async(out)
+            key, syms, rle2_len, freqs, used = out
+            small = _small_vector(key, rle2_len, freqs, used)
+            (h_small, h_syms), event = host_copies(self.device, small, syms)
 
         def finish():
             s = h_small.numpy()
@@ -277,7 +286,8 @@ class DeviceBlockEncoder:
         """Start the host copy of a ``transform_bwt`` result; ``.result()``
         is ``fetch_bwt``'s pair."""
         key, last, n = out
-        (h_key, h_last), event = host_copies(self.device, key.view(1), last)
+        with spans.span("dispatch.copies"):
+            (h_key, h_last), event = host_copies(self.device, key.view(1), last)
         return Pending(event, lambda: (int(h_key[0]), h_last[:n].numpy()),
                        getattr(out, "bwt", None))
 

@@ -74,7 +74,8 @@
 // skipped passes, cap error, and per round the next active count, the
 // classes, the split flag and the next large count) is written to the
 // caller's pinned words, which the caller reads once the stream has passed
-// the call. The rule: stop after a round that leaves no active rotation,
+// the call; so are the card's clock at the setup's start and at the last
+// column's end, the call's time on the card. The rule: stop after a round that leaves no active rotation,
 // or in which no active class split (the partition at 2h equals the one at
 // h).
 //
@@ -159,8 +160,11 @@ enum { kKeysK, kPassK, kSmallK, kTilesK, kScanK, kApplyK, kEndK, kBodyKernels };
 // the pinned words of a row: its record, then kPinnedPerRound a round
 constexpr int kPinnedRecord = 6;  // rounds, active rotations sorted, skipped passes, cap error,
                                   // sorts (rounds whose large list was not empty), passes run
-constexpr int kPinnedHead = kPinnedRecord + kBodyKernels;  // then each body kernel's launches
-                                                           // (row 0's words; 0 in other rows)
+constexpr int kPinnedTimer = kPinnedRecord + kBodyKernels;  // then each body kernel's launches
+                                                            // (row 0's words; 0 in other rows)
+constexpr int kPinnedHead = kPinnedTimer + 2;  // then the low words of %globaltimer at the start of
+                                               // bwt_setup and at the end of the row's
+                                               // bwt_last_column CTA 0
 constexpr int kPinnedPerRound = 4;  // next active count, classes, split, next large count
 constexpr int kPinnedPerRow = kPinnedHead + kPinnedPerRound * kMaxRounds;
 // launches of one round (the graph body) and of one call around it
@@ -275,8 +279,19 @@ __device__ __forceinline__ void count_launch(const Call& c, int k) {
   }
 }
 
-// The setup launch: the call's parameters into the graph's block.
+// The low 32 bits of the card's nanosecond clock: a call's span on the card
+// is the difference of two readings, modulo 2^32.
+__device__ __forceinline__ int32_t timer_lo() {
+  uint32_t t;
+  asm volatile("mov.u32 %0, %%globaltimer_lo;" : "=r"(t));
+  return static_cast<int32_t>(t);
+}
+
+// The setup launch: the call's parameters into the graph's block, and the
+// call's start on the card into each row's record.
 __global__ void bwt_setup(Call call, Call* dst) {
+  const int32_t t = timer_lo();
+  if (threadIdx.x < call.B) call.pinned[threadIdx.x * kPinnedPerRow + kPinnedTimer] = t;
   if (threadIdx.x == 0) *dst = call;
 }
 
@@ -907,17 +922,12 @@ struct Lengths {
   int n[kMaxRows];
 };
 
-// Row b's column at last + b * N and its key at key[b]. A row of one byte is
-// its own column, key 0, whether or not it ran a round; a row of none is
-// all zero.
-__global__ void __launch_bounds__(kThreads)
-    bwt_last_column(const uint8_t* __restrict__ data, int N, Lengths ns,
-                    const unsigned char* scratch, long long stride, long long sa_off,
-                    long long rank_off, uint8_t* __restrict__ last, int64_t* __restrict__ key) {
-  const int p = blockIdx.x * kThreads + threadIdx.x;
-  if (p >= N) return;
-  const size_t row = blockIdx.y;
-  const int n = ns.n[row];
+// Position p of row `row`'s column and, at p = 0, its key.
+__device__ __forceinline__ void last_column_at(int p, size_t row, const uint8_t* __restrict__ data,
+                                               int N, int n, const unsigned char* scratch,
+                                               long long stride, long long sa_off,
+                                               long long rank_off, uint8_t* __restrict__ last,
+                                               int64_t* __restrict__ key) {
   const uint8_t* block = data + row * N;
   last += row * N;
   if (p >= n) {
@@ -934,6 +944,22 @@ __global__ void __launch_bounds__(kThreads)
   const int i = reinterpret_cast<const int32_t*>(base + sa_off)[p];
   last[p] = block[i == 0 ? n - 1 : i - 1];
   if (p == 0) key[row] = reinterpret_cast<const int32_t*>(base + rank_off)[0];
+}
+
+// Row b's column at last + b * N and its key at key[b]. A row of one byte is
+// its own column, key 0, whether or not it ran a round; a row of none is
+// all zero. Position 0's thread of each row writes the call's end on the
+// card into the row's record (pinned: the card's address of the record).
+__global__ void __launch_bounds__(kThreads)
+    bwt_last_column(const uint8_t* __restrict__ data, int N, Lengths ns,
+                    const unsigned char* scratch, long long stride, long long sa_off,
+                    long long rank_off, uint8_t* __restrict__ last, int64_t* __restrict__ key,
+                    int* __restrict__ pinned) {
+  const int p = blockIdx.x * kThreads + threadIdx.x;
+  if (p >= N) return;
+  const size_t row = blockIdx.y;
+  last_column_at(p, row, data, N, ns.n[row], scratch, stride, sa_off, rank_off, last, key);
+  if (p == 0) pinned[row * kPinnedPerRow + kPinnedTimer + 1] = timer_lo();
 }
 
 int blocks_for(int lanes, int per) { return (lanes + per - 1) / per; }
@@ -1101,7 +1127,8 @@ int enqueue_bwt(const uint8_t* data, const int* ns, int B, int N, int min_n,
     stats[1] = 1;
   }
   bwt_last_column<<<dim3(blocks_for(N, kThreads), B), kThreads, 0, st>>>(
-      data, N, lengths, call.scratch, call.stride, call.L.sa, call.L.rank, out_last, out_key);
+      data, N, lengths, call.scratch, call.stride, call.L.sa, call.L.rank, out_last, out_key,
+      call.pinned);
   if (cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
   ++stats[0];
   stats[2] = us_since(t_enqueue) - stats[3];
@@ -1117,7 +1144,7 @@ int enqueue_bwt(const uint8_t* data, const int* ns, int B, int N, int min_n,
 // sizes[4] the pinned words of a row's record before its rounds' words
 // (rounds, active rotations sorted, skipped passes, cap error, sorts,
 // passes run, then each body kernel's launches, the last of them
-// bwt_round_end: csrc order kKeysK .. kEndK),
+// bwt_round_end: csrc order kKeysK .. kEndK, then the two timer words),
 // sizes[5] the pinned words a round, sizes[6] this file's kernels a round
 // (the graph body's), sizes[7] its kernels a call around the loop.
 // Returns 0.
@@ -1157,7 +1184,8 @@ extern "C" int tpubz_bwt_batch_sizes(const int* ns, int B, long long* sizes) {
 // card-addressable host int32 words, as many as it gives: row b's record at
 // b * kPinnedPerRow (rounds, active rotations sorted, radix passes
 // skipped, cap error, sorts, passes run, the body kernels' launches, which
-// row 0 holds), its round r's words after it (next active count,
+// row 0 holds, the low words of %globaltimer at the start of bwt_setup and
+// at the end of the row's bwt_last_column CTA 0), its round r's words after it (next active count,
 // classes, split flag, next large count). Enqueues the whole call on
 // `stream` and returns at once: the record is the card's once the stream
 // has passed the call, and the scratch and the pinned words must live until

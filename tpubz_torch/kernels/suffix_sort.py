@@ -201,11 +201,14 @@ def call_sizes(n: int) -> tuple[int, int, int, int]:
 
 
 # a row's record: rounds, active rotations sorted, passes skipped, the cap
-# error, sorts (rounds whose large list was not empty), passes run, then
-# the launches of each body kernel (row 0's; 0 in the other rows)
+# error, sorts (rounds whose large list was not empty), passes run, the
+# launches of each body kernel (row 0's; 0 in the other rows), then the low
+# 32 bits of the card's %globaltimer (ns) at the start of bwt_setup and at
+# the end of the row's bwt_last_column CTA 0
 BODY = ("bwt_keys", "bwt_pass", "bwt_small_sort", "bwt_rank_tiles", "bwt_rank_scan",
         "bwt_rank_apply", "bwt_round_end")
-RECORD = ("rounds", "active", "skipped", "error", "sorts", "passes_run") + BODY
+TIMER = ("timer_setup", "timer_end")
+RECORD = ("rounds", "active", "skipped", "error", "sorts", "passes_run") + BODY + TIMER
 
 
 def record_sizes() -> tuple[int, int]:
@@ -232,7 +235,10 @@ class BwtCall:
     record the card left in the pinned words, adds the call to the module's
     counts and raises if a row reached its round cap short of the stop rule
     (which no input can cause); it runs once, whoever calls it. A call
-    dropped unfinished waits for its event before its buffers go."""
+    dropped unfinished waits for its event before its buffers go. After
+    ``finish()``, ``device_ns`` is the call's time on the card, from the
+    start of its setup launch to the end of row 0's last column, by the
+    card's own clock (None for a call that ran no round)."""
 
     def __init__(self, n, scratch, pinned, stats, event):
         self.n = n  # the rows' lengths
@@ -240,6 +246,7 @@ class BwtCall:
         self.stats = tuple(stats)
         self.event = event
         self.rows = None  # after finish: per row, its record (RECORD's names) and per-round words
+        self.device_ns = None
         self._lock = threading.Lock()
         self._error = None
 
@@ -275,6 +282,9 @@ class BwtCall:
                         self._error = (b, rounds)
                 self.rows = rows
                 self._keep = None
+                if ran:
+                    # the timer's low words: exact for a call shorter than 2^32 ns
+                    self.device_ns = (rows[0]["timer_end"] - rows[0]["timer_setup"]) & 0xFFFFFFFF
                 body = {k: sum(r[k] for r in rows) for k in BODY}
                 radix.count_sorts(sum(r["sorts"] for r in rows), body["bwt_pass"])
                 with _launch_lock:

@@ -66,6 +66,7 @@ from concurrent.futures import wait as _fut_wait
 import numpy as np
 import torch
 
+from .. import spans
 from ..block.emit import emit_block
 from ..block.encode import DeviceBlockEncoder, resolve_device
 from ..format.constants import FOOTER_MAGIC, STREAM_MAGIC, block_budget
@@ -107,7 +108,8 @@ _stream_epoch_g = [0]
 # loses: the way back for a healthy device behind a stale profile
 _reprobe_left_g = [1]
 # the most recent stream: which engines carried its blocks, and per block
-# (engine, block index, t_start, t_end) wall-clock spans
+# (engine, block index, t_start, t_end) on time.perf_counter's clock, the
+# clock of tpubz_torch.spans
 last_stream_stats: dict = {}
 last_stream_events: list = []
 
@@ -209,38 +211,76 @@ def compress_cpu(data, level: int = 9) -> bytes:
     return _compress_impl(data, level, None)
 
 
+class _TracedItems:
+    """A stream's items while spans are recorded: the first request for a
+    block ends the stream's set-up, and each request is a ``stream.fill``
+    span (the wait on the RLE1 feed)."""
+
+    def __init__(self, items, stream: int, setup):
+        self._items = items
+        self._stream = stream
+        self._setup = setup
+
+    def __iter__(self):
+        self._setup.end()
+        it = iter(self._items)
+        while True:
+            with spans.span("stream.fill", stream=self._stream):
+                item = next(it, None)
+            if item is None:
+                return
+            yield item
+
+    def total_estimate(self) -> int:
+        return _items_total(self._items)
+
+
 def _compress_impl(data, level: int, device) -> bytes:
     if not 1 <= level <= 9:
         raise ValueError("level must be 1..9")
-    dev = None if device is None else resolve_device(device)
-    arr = (
-        np.frombuffer(data, dtype=np.uint8)
-        if isinstance(data, (bytes, bytearray, memoryview))
-        else np.asarray(data, dtype=np.uint8)
-    )
-    budget = block_budget(level)
-    if arr.size > 4 * budget:
-        # scan in a background thread; blocks dispatch as they are confirmed
-        items = _FeedItems(Rle1Feed(arr, budget), arr)
-    else:
-        out, blocks = rle1_blocks(arr, budget)
-        items = [(out[o0:o1], arr[i0:i1]) for o0, o1, i0, i1 in blocks]
+    sid = spans.new_stream()
+    with spans.span("stream", stream=sid) as whole:
+        setup = spans.span("stream.setup", stream=sid).start()
+        try:
+            dev = None if device is None else resolve_device(device)
+            arr = (
+                np.frombuffer(data, dtype=np.uint8)
+                if isinstance(data, (bytes, bytearray, memoryview))
+                else np.asarray(data, dtype=np.uint8)
+            )
+            budget = block_budget(level)
+            if arr.size > 4 * budget:
+                # scan in a background thread; blocks dispatch as they are confirmed
+                items = _FeedItems(Rle1Feed(arr, budget), arr)
+            else:
+                out, blocks = rle1_blocks(arr, budget)
+                items = [(out[o0:o1], arr[i0:i1]) for o0, o1, i0, i1 in blocks]
+            if setup:
+                items = _TracedItems(items, sid, setup)
 
-    header = BitAccum()
-    for b in STREAM_MAGIC:
-        header.put(b, 8)
-    header.put(0x30 + level, 8)
-    splicer = IncrementalSplicer(cap_hint=arr.size // 2 + 64)
-    splicer.add(*header.pack())
-    s_crc = 0
-    for crc, data_b, nbits in block_results(level, items, dev):
-        s_crc = stream_crc_fold(s_crc, crc)
-        splicer.add(data_b, nbits)
-    footer = BitAccum()
-    footer.put(FOOTER_MAGIC, 48)
-    footer.put(s_crc, 32)
-    splicer.add(*footer.pack())
-    payload, _ = splicer.finish()
+            header = BitAccum()
+            for b in STREAM_MAGIC:
+                header.put(b, 8)
+            header.put(0x30 + level, 8)
+            splicer = IncrementalSplicer(cap_hint=arr.size // 2 + 64)
+            splicer.add(*header.pack())
+            s_crc = 0
+            n_blocks = 0
+            handed = None  # when the caller took the last block so far
+            for crc, data_b, nbits in block_results(level, items, dev):
+                s_crc = stream_crc_fold(s_crc, crc)
+                splicer.add(data_b, nbits)
+                n_blocks += 1
+                handed = spans.now()
+        finally:
+            setup.end()
+        with spans.span("stream.finish", stream=sid, at=handed):
+            footer = BitAccum()
+            footer.put(FOOTER_MAGIC, 48)
+            footer.put(s_crc, 32)
+            splicer.add(*footer.pack())
+            payload, _ = splicer.finish()
+        whole.set(bytes=int(arr.size), blocks=n_blocks)
     return payload
 
 
@@ -270,10 +310,10 @@ def _host_results(level: int, items):
                                             str(3 * (os.cpu_count() or 4)))), 24))
 
     def one(idx, blk, raw):
-        t0 = time.time()
+        t0 = time.perf_counter()
         crc = block_crc(raw)
         data, nbits = enc.encode_block(blk, crc).pack()
-        last_stream_events.append(("cpu", idx, t0, time.time()))
+        last_stream_events.append(("cpu", idx, t0, time.perf_counter()))
         return crc, data, nbits
 
     n_est = _items_total(items)
@@ -369,17 +409,31 @@ def _device_block_results(enc: DeviceBlockEncoder, items, settings: dict):
         ) or "bwt"
     if stage not in ("bwt", "full"):
         raise ValueError(f"TPUBZ_DEVICE_STAGE must be auto, bwt or full, not {stage!r}")
+    sid = spans.current_stream()
+    spans.annotate("stream", stage=stage)
 
-    def on_device(blk):
+    def on_device(idx, blk):
         """Dispatcher thread: transforms and the enqueue of the copies."""
-        if stage == "bwt":
-            return enc.fetch_bwt_async(enc.transform_bwt(blk))
-        # the int16 form, not tpubz's lean one: in 8 alternating device-only
-        # streams of each on an H100 (700 W, 8-core host) int16 gave a median
-        # of 185 MB/s against lean's 171, the lean fetch's host count costing
-        # more (1.1 against 0.26 ms a block) than the halved copy saves
-        # (PERF.md section 6; stage_probe --mode lean)
-        return enc.fetch_async(enc.transform(blk))
+        with spans.span("dispatch", stream=sid, block=idx) as sp:
+            if sp:
+                sp.set(n=blk.size)
+            if stage == "bwt":
+                return enc.fetch_bwt_async(enc.transform_bwt(blk))
+            # the int16 form, not tpubz's lean one: in 8 alternating device-only
+            # streams of each on an H100 (700 W, 8-core host) int16 gave a median
+            # of 185 MB/s against lean's 171, the lean fetch's host count costing
+            # more (1.1 against 0.26 ms a block) than the halved copy saves
+            # (PERF.md section 6; stage_probe --mode lean)
+            return enc.fetch_async(enc.transform(blk))
+
+    def fetch(launch_fut, idx):
+        """Fetch thread: the block's copies and its BWT call, waited for."""
+        pending = launch_fut.result()
+        with spans.span("fetch.wait", stream=sid, block=idx) as sp:
+            out = pending.result()
+            if sp:
+                sp.set(bwt_device_ns=pending.device_ns)
+        return out
 
     def emit(fetch_fut, raw):
         t0 = time.time()
@@ -397,9 +451,10 @@ def _device_block_results(enc: DeviceBlockEncoder, items, settings: dict):
         leg_samples.append(leg + time.time() - t0)
         return crc, data, nbits
 
-    def emit_timed(fetch_fut, t_disp, seq, idx, raw):
+    def emit_timed(fetch_fut, t_disp, t_disp_pc, seq, idx, raw):
         """emit, with the in-flight count released whatever happens and the
-        cadence and latency samples taken from successes only."""
+        cadence and latency samples taken from successes only; t_disp is on
+        the routing's clock (time.time), t_disp_pc on last_stream_events'."""
         ok = False
         try:
             r = emit(fetch_fut, raw)
@@ -411,13 +466,14 @@ def _device_block_results(enc: DeviceBlockEncoder, items, settings: dict):
                 dev_flight_t.pop(seq, None)
             if _stream_epoch_g[0] == epoch:
                 now = time.time()
-                last_stream_events.append(("dev", idx, t_disp, now))
+                last_stream_events.append(("dev", idx, t_disp_pc, time.perf_counter()))
                 if ok:
                     _dev_done_g.append(now)
                     dev_lat_samples.append(now - t_disp)
 
     def cpu_one(idx, blk, raw):
         t0 = time.time()
+        t0_pc = time.perf_counter()
         try:
             crc = block_crc(raw)
             data, nbits = host_enc.encode_block(blk, crc).pack()
@@ -425,7 +481,7 @@ def _device_block_results(enc: DeviceBlockEncoder, items, settings: dict):
         finally:
             dt = time.time() - t0
             if _stream_epoch_g[0] == epoch:
-                last_stream_events.append(("cpu", idx, t0, t0 + dt))
+                last_stream_events.append(("cpu", idx, t0_pc, time.perf_counter()))
             _cpu_ema_g[0] = dt if not _cpu_ema_g[0] else 0.5 * _cpu_ema_g[0] + 0.5 * dt
             with dev_lock:
                 cpu_inflight[0] -= 1
@@ -508,14 +564,15 @@ def _device_block_results(enc: DeviceBlockEncoder, items, settings: dict):
     def dispatch_device(idx, blk, raw):
         n_dev[0] += 1
         t_disp = time.time()
+        t_disp_pc = time.perf_counter()
         with dev_lock:
             dev_inflight[0] += 1
             dev_flight_seq[0] += 1
             seq = dev_flight_seq[0]
             dev_flight_t[seq] = t_disp
-        launch_fut = dispatch_pool.submit(on_device, blk)
-        fetch_fut = fetch_pool.submit(lambda: launch_fut.result().result())
-        f = emit_pool.submit(emit_timed, fetch_fut, t_disp, seq, idx, raw)
+        launch_fut = dispatch_pool.submit(on_device, idx, blk)
+        fetch_fut = fetch_pool.submit(fetch, launch_fut, idx)
+        f = emit_pool.submit(emit_timed, fetch_fut, t_disp, t_disp_pc, seq, idx, raw)
         dev_futs.append(f)
         inflight.append((f, "dev", ((idx, blk, raw), t_disp)))
         log.debug("in-flight blocks (device): %d", len(inflight))
